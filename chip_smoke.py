@@ -8,14 +8,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from `mj_envs_torch/csrc/` (nvcc, sm_90a);
 3. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes (B = 512 envs, nv = 33, nefc = 296, noslip R = 129):
-   max error, kernel / plain / library times (CUDA events), and the
-   card's bound for the same work;
-4. a small-input reference: 8 hammer-v0 envs stepped twice on the card
-   and on the CPU (plain versions) from the same state and actions;
+   main path's shapes (B = 512 envs; hammer nv = 33, nefc = 296, noslip
+   R = 129; the FK kernel on each task's tree with its per-env model
+   fields): max error, kernel / plain / library times (CUDA events), and
+   the card's bound for the same work;
+4. a small-input reference: 8 envs of each task stepped twice on the
+   card and on the CPU (plain versions) from the same state and actions;
+   on the hammer card state, noslip without the mass-matrix factor (its
+   own factor-and-solve kernel) against noslip with it;
 5. the main path: hammer-v0 `VectorEnv(4096, chunk_size=512)`, reset and
-   a few auto-reset steps, with every kernel's launch count read around
-   the steps;
+   5 auto-reset steps, then door, pen and relocate at the same size for
+   2 steps each, every kernel's launch count set to 0 before each task's
+   timed steps and read after them;
 6. one JSON line listing the kernels, then the device line.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -37,6 +41,7 @@ sys.path.insert(0, ROOT)
 # float32 rate outside the tensor cores.
 BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+SM_HZ = 1.98e9     # the SM boost clock: cycles per second of a spin kernel
 
 B_CHUNK = 512      # envs per chunk on the main path
 NV = 33            # hammer-v0 dofs
@@ -44,7 +49,13 @@ NEFC = 296         # solver rows: 33 friction + 71 limits + 32 x 6 facets
 R_NOSLIP = 129     # 33 dof friction rows + 3 x 32 facet pairs
 NOSLIP_ITERS = 20
 NUM_ENVS = 4096
-STEPS = 5
+TASKS = ("hammer-v0", "door-v0", "pen-v0", "relocate-v0")
+STEPS = {"hammer-v0": 5, "door-v0": 2, "pen-v0": 2, "relocate-v0": 2}
+# The kernels every task's step runs (the other two are reached only
+# through their front ends and noslip without a factor).
+MAIN_KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
+                "linesearch_cost", "noslip_sweep")
+FK_TOL = 2e-5      # abs, scaled by max(1, |x|) per field
 F32 = 4
 
 
@@ -68,12 +79,23 @@ def bound(nbytes, flops):
 
 def time_ms(fn, reps, warmup=2):
     """Mean device time of one call, from CUDA events around `reps`
-    back-to-back calls after `warmup` calls."""
+    back-to-back calls after `warmup` calls.  A spin kernel queued ahead
+    of the first event holds the device while the host enqueues the
+    calls (twice the host time of one call, times reps), so that a call
+    whose wrapper takes longer on the host than its kernel on the device
+    is timed by its device work, not by the host's gaps between launches.
+    A call that waits for the device itself (a copy from pageable memory)
+    still includes them."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * reps * host_s + 1e-3, 5.0) * SM_HZ))
     start.record()
     for _ in range(reps):
         fn()
@@ -170,6 +192,22 @@ def compare_kernels(TK, dev):
            time_ms(lambda: torch.linalg.solve(H, g), 20),
            mat + 2 * vec, B_CHUNK * (NV ** 3 / 3 + 2 * NV * NV), 2e-4)
 
+    # K8: factor and solve over R = 129 right-hand sides (noslip without
+    # a mass-matrix factor); the factor never leaves shared memory.
+    def lib_solve_mat():
+        L, _ = torch.linalg.cholesky_ex(H)
+        return torch.cholesky_solve(G, L)
+
+    record("chol_solve_mat", "mj_envs_tpu/physics/kernels.py:719",
+           "mj_envs_torch/csrc/chol.cu",
+           {"X (R=129)": rel_err(TK.chol_solve_mat_cuda(H, G),
+                                 TK.chol_solve_mat_plain(H, G))},
+           time_ms(lambda: TK.chol_solve_mat_cuda(H, G), 50),
+           time_ms(lambda: TK.chol_solve_mat_plain(H, G), 20),
+           time_ms(lib_solve_mat, 20),
+           mat + 2 * rhs,
+           B_CHUNK * (NV ** 3 / 3 + 2 * NV * NV * R_NOSLIP), 2e-4)
+
     # K5: linesearch + row cost.  Operations per row: 8 for each phi'
     # and phi'' evaluation, 12 for the final cost; 12 bracket phi', 16
     # (phi', phi'') steps, one cost pass.
@@ -199,6 +237,17 @@ def compare_kernels(TK, dev):
            None, ls_bytes, B_CHUNK * NEFC * (12 * 8 + 16 * 16 + 12),
            {"alpha": 2e-3, "cost": 1e-5})
 
+    # K7: the same search, alpha only (no cost pass, one output less);
+    # alpha held at 2e-3 for the reason printed above for K5.
+    record("linesearch", "mj_envs_tpu/physics/kernels.py:365",
+           "mj_envs_torch/csrc/linesearch.cu",
+           {"alpha": rel_err(TK.linesearch_cuda(*ls, 12, 16),
+                             TK.linesearch_plain(*ls, 12, 16))},
+           time_ms(lambda: TK.linesearch_cuda(*ls, 12, 16), 50),
+           time_ms(lambda: TK.linesearch_plain(*ls, 12, 16), 5),
+           None, ls_bytes - B_CHUNK * F32,
+           B_CHUNK * NEFC * (12 * 8 + 16 * 16), 2e-3)
+
     # K6: noslip sweeps at tol = 0 (exactly 20 sweeps, as the plain
     # version); then tol = 1e-3 (the main path's) against tol = 0.
     ns = card(TK.random_noslip_problem(rng, B_CHUNK, R_NOSLIP))
@@ -223,11 +272,119 @@ def compare_kernels(TK, dev):
     return entries
 
 
-def small_reference(envs, VectorEnv, dev, n=8, steps=2):
+def fk_flops(s):
+    """float32 operations of one env's FK as csrc/fk.cu does them: a
+    quaternion product 28, a rotation 30, a rotation matrix 30, a unit
+    quaternion 13, sin and cos one each."""
+    from mj_envs_torch.physics.model import JNT_HINGE, JNT_SLIDE
+    jt = np.asarray(s.jnt_type)
+    n_hinge = int((jt == JNT_HINGE).sum())
+    n_slide = int((jt == JNT_SLIDE).sum())
+    return ((s.nbody - 1) * (61 + 4)          # body offset; subtree sums
+            + n_hinge * (176 + 12)            # hinge walk, anchor, axis; cdof
+            + n_slide * 99                    # slide walk, anchor, axis
+            + s.nbody * (66 + 4 + 192)        # frames, xipos; com; cinert
+            + (s.ngeom + s.nsite) * 91)       # geom and site poses
+
+
+def fk_bytes(K, m, B):
+    """Bytes FK must move: qpos, each model field (per-env fields B
+    times, shared ones once), the tree table, and the 13 outputs."""
+    s = m.spec
+    n = B * s.nq + K.fk_table(s).size
+    for name in K.fk_field_shapes(s):
+        n += getattr(m, name).numel()
+    nb, nj, ng, ns = s.nbody, s.njnt, s.ngeom, s.nsite
+    n += B * (nb * (3 + 4 + 9 + 3 + 3 + 36) + ng * 12 + ns * 12 + nj * 12)
+    return n * F32
+
+
+def compare_fk(envs, VectorEnv, apply_var, dev):
+    """Phase 3, K1: the FK kernel against the plain version on each task's
+    tree at B = 512, with the task's per-env fields from a reset (hammer's
+    also with per-env body_mass and geom_pos, so that all five fields a
+    task may vary arrive per env) and qpos0 + 0.3 N(0, 1).  Returns the
+    JSON entry at hammer's shapes, the largest error over the tasks."""
+    from mj_envs_torch.physics import kinematics as K
+    rng = np.random.default_rng(1)
+    worst, hammer = 0.0, None
+    for task in TASKS:
+        env = envs.make(task, device=dev)
+        m = apply_var(env.model, VectorEnv(env, B_CHUNK).reset(seed=2).var)
+        if task == "hammer-v0":
+            m = m.replace(**{
+                "body_mass": m.body_mass * torch.as_tensor(rng.uniform(
+                    0.5, 2.0, (B_CHUNK,) + m.body_mass.shape),
+                    dtype=torch.float32, device=dev),
+                "geom_pos": m.geom_pos + 0.02 * torch.as_tensor(
+                    rng.standard_normal((B_CHUNK,) + m.geom_pos.shape),
+                    dtype=torch.float32, device=dev)})
+        per_env = [f for f, shape in K.fk_field_shapes(m.spec).items()
+                   if getattr(m, f).dim() > len(shape)]
+        qpos = env.model.qpos0 + 0.3 * torch.as_tensor(
+            rng.standard_normal((B_CHUNK, env.nq)), dtype=torch.float32,
+            device=dev)
+        k = K.kinematics(m, qpos)
+        p = K.kinematics_plain(m, qpos)
+        errs = []
+        for f in K.Kin._fields:
+            a, b = getattr(k, f), getattr(p, f)
+            err = (a.double() - b.double()).abs().max().item()
+            scale = max(1.0, b.abs().max().item())
+            errs.append((err / scale, err, f))
+        rel, err, field = max(errs)
+        worst = max(worst, err)
+        ms = time_ms(lambda: K.kinematics(m, qpos), 50)
+        plain_ms = time_ms(lambda: K.kinematics_plain(m, qpos), 3, 1)
+        bms, by = bound(fk_bytes(K, m, B_CHUNK),
+                        B_CHUNK * fk_flops(env.spec))
+        log(f"  fk {task} (per env: {', '.join(per_env)}): max_abs_err "
+            f"{err:.3e} ({field}; {rel:.3e} of max(1, |x|), tol {FK_TOL:g}); "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bms * 1e3:.2f} us ({by})")
+        log("    per field: " + ", ".join(f"{f} {e:.1e}" for _, e, f in errs))
+        check(rel <= FK_TOL, f"fk {task} {field}: kernel disagrees with its "
+              f"plain version ({rel:.3e} > {FK_TOL})")
+        if task == "hammer-v0":
+            hammer = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    return dict(name="fk", route="cuda", source="mj_envs_torch/csrc/fk.cu",
+                replaces="mj_envs_tpu/physics/fk_kernel.py:113", launches=0,
+                max_abs_err=worst, library_ms=None, **hammer)
+
+
+def noslip_without_factor(TK, envs, apply_var, st, dev):
+    """Phase 4: on a hammer card state, `solver.noslip` without the mass
+    matrix's factor (K8 factors M itself) against noslip with it."""
+    from mj_envs_torch.physics import pipeline as P
+    from mj_envs_torch.physics import solver as S
+    env = envs.make("hammer-v0", device=dev)
+    m, d, s = apply_var(env.model, st.var), st.data, env.spec
+    out = P.forward_core(m, d.qpos, d.qvel, d.ctrl, d.qacc_warmstart,
+                         d.qfrc_applied)
+    _, fac = TK.chol_solve_factor(out.M, out.qacc_smooth)
+    res = S.newton_solve(out.M, out.qacc_smooth, out.rows, d.qacc_warmstart,
+                         iterations=s.iterations)
+    nfl, nc = int(np.sum(s.dof_hasfrictionloss)), P.ncmax(s)
+    n0 = TK.launches["chol_solve_mat"]
+    ns_mat = S.noslip(out.M, out.rows, res, nfl, nc, s.noslip_iterations)
+    torch.cuda.synchronize()
+    check(TK.launches["chol_solve_mat"] == n0 + 1,
+          "noslip without a factor did not launch chol_solve_mat")
+    ns_fac = S.noslip(out.M, out.rows, res, nfl, nc, s.noslip_iterations,
+                      M_fac=fac)
+    for f in ("qacc", "efc_force"):
+        rel, ab = rel_err(getattr(ns_mat, f), getattr(ns_fac, f))
+        log(f"  noslip(M_fac=None) vs noslip(M_fac) {f}: max abs diff "
+            f"{ab:.3e}, rel {rel:.3e} (tol 1e-5)")
+        check(rel <= 1e-5, f"noslip without a factor disagrees on {f}")
+
+
+def small_reference(envs, VectorEnv, dev, task, n=8, steps=2):
     """Phase 4: the card path against the CPU plain path from one state
-    with the same actions (tolerances of tests/test_torch_hammer.py)."""
-    env_k = envs.make("hammer-v0", device=dev)
-    env_p = envs.make("hammer-v0", device="cpu")
+    with the same actions (tolerances of tests/test_torch_hammer.py);
+    returns the card state."""
+    env_k = envs.make(task, device=dev)
+    env_p = envs.make(task, device="cpu")
     vk, vp = VectorEnv(env_k, n), VectorEnv(env_p, n)
     st_k = vk.reset(seed=3)
     vp.reset(seed=3)
@@ -237,34 +394,36 @@ def small_reference(envs, VectorEnv, dev, n=8, steps=2):
         a = rng.uniform(-1.0, 1.0, (n, env_k.nu)).astype(np.float32)
         st_k = vk.step(st_k, torch.as_tensor(a, device=dev))
         st_p = vp.step(st_p, torch.as_tensor(a))
-    worst = 0.0
-    for name in ("obs", "reward"):
-        k, p = getattr(st_k, name).cpu(), getattr(st_p, name)
-        worst = max(worst, (k - p).abs().max().item())
-        torch.testing.assert_close(k, p, rtol=1e-3, atol=2e-3)
-    for name in ("qpos", "qvel"):
-        k, p = getattr(st_k.data, name).cpu(), getattr(st_p.data, name)
-        worst = max(worst, (k - p).abs().max().item())
+    worst, use = 0.0, (0.0, "")
+    for name in ("obs", "reward", "qpos", "qvel"):
+        src_k, src_p = (st_k.data, st_p.data) if name.startswith("q") \
+            else (st_k, st_p)
+        k, p = getattr(src_k, name).cpu(), getattr(src_p, name)
+        d = (k - p).abs()
+        worst = max(worst, d.max().item())
+        use = max(use, ((d / (2e-3 + 1e-3 * p.abs())).max().item(), name))
         torch.testing.assert_close(k, p, rtol=1e-3, atol=2e-3)
     for name in ("done", "truncated", "nan_resets", "contact_clips"):
         check(torch.equal(getattr(st_k, name).cpu(), getattr(st_p, name)),
               f"{name}: card and CPU differ")
-    log(f"  {n} envs x {steps} steps, card vs CPU: max abs diff "
-        f"{worst:.3e} (rtol 1e-3, atol 2e-3)")
+    log(f"  {task}: {n} envs x {steps} steps, card vs CPU: max abs diff "
+        f"{worst:.3e}; largest share of the tolerance (rtol 1e-3, atol "
+        f"2e-3) used: {use[0]:.3f} ({use[1]})")
+    return st_k
 
 
-def main_path(TK, envs, VectorEnv, random_actions, dev, num_envs, chunk,
-              steps):
-    """Phase 5: reset and `steps` auto-reset steps; returns the launch
-    counts of the timed steps and env-steps/s."""
-    env = envs.make("hammer-v0", device=dev)
+def main_path(TK, envs, VectorEnv, random_actions, dev, task, num_envs,
+              chunk, steps):
+    """Phase 5: reset and `steps` auto-reset steps of one task; returns
+    the launch counts of the timed steps and env-steps/s."""
+    env = envs.make(task, device=dev)
     venv = VectorEnv(env, num_envs, chunk_size=chunk)
     t0 = time.perf_counter()
     st = venv.reset(seed=0)
     gen = torch.Generator(device=dev).manual_seed(1)
     st = venv.step(st, random_actions(gen, num_envs, env.nu, dev))
     torch.cuda.synchronize()
-    log(f"  reset + first step: {time.perf_counter() - t0:.2f} s")
+    log(f"  {task}: reset + first step: {time.perf_counter() - t0:.2f} s")
 
     TK.reset_launches()
     t0 = time.perf_counter()
@@ -282,14 +441,19 @@ def main_path(TK, envs, VectorEnv, random_actions, dev, num_envs, chunk,
         check(bool(torch.isfinite(t).all()), f"non-finite {name}")
     nchunk = max(1, num_envs // chunk)
     calls = steps * env.FRAME_SKIP * nchunk
-    log(f"  {steps} steps x {num_envs} envs in {dt:.3f} s: "
+    log(f"  {task}: {steps} steps x {num_envs} envs in {dt:.3f} s: "
         f"{steps * num_envs / dt:.1f} env-steps/s; nan_resets "
         f"{int(st.nan_resets.sum())}, contact_clips "
         f"{int(st.contact_clips.sum())}, mean Newton iterations per chunk "
         f"substep {launches['linesearch_cost'] / calls:.2f}")
-    log(f"  launches: {json.dumps(launches)}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    log(f"  {task}: launches: {json.dumps(launches)}")
+    for name in MAIN_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on {task}'s step")
+    # FK runs once per substep and once in the in-step reset, per chunk.
+    want = steps * nchunk * (env.FRAME_SKIP + 1)
+    check(launches["fk"] == want,
+          f"{task}: fk launched {launches['fk']} times, not {want}")
     return launches, steps * num_envs / dt
 
 
@@ -299,6 +463,7 @@ def main():
                  "NVIDIA GPU)")
     import mj_envs_torch  # noqa: F401  (float32 matmul settings)
     from mj_envs_torch import envs
+    from mj_envs_torch.envs.base import _apply_var
     from mj_envs_torch.parallel.vector import VectorEnv, random_actions
     from mj_envs_torch.physics import _build, kernels as TK
 
@@ -313,18 +478,27 @@ def main():
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
 
     log(f"[3] kernels vs plain versions at B = {B_CHUNK}:")
-    entries = compare_kernels(TK, dev)
+    entries = [compare_fk(envs, VectorEnv, _apply_var, dev)]
+    entries += compare_kernels(TK, dev)
 
     log("[4] small-input reference:")
-    small_reference(envs, VectorEnv, dev)
+    for task in TASKS:
+        st = small_reference(envs, VectorEnv, dev, task)
+        if task == "hammer-v0":
+            noslip_without_factor(TK, envs, _apply_var, st, dev)
 
-    log(f"[5] main path: hammer-v0, {NUM_ENVS} envs, chunk {B_CHUNK}:")
-    launches, rate = main_path(TK, envs, VectorEnv, random_actions, dev,
-                               NUM_ENVS, B_CHUNK, STEPS)
+    log(f"[5] main path: {NUM_ENVS} envs, chunk {B_CHUNK}, each task:")
+    rates, total = {}, dict.fromkeys(TK.KERNELS, 0)
+    for task in TASKS:
+        launches, rates[task] = main_path(
+            TK, envs, VectorEnv, random_actions, dev, task, NUM_ENVS,
+            B_CHUNK, STEPS[task])
+        for name, n in launches.items():
+            total[name] += n
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = total[e["name"]]
 
-    log(json.dumps({"env_steps_per_s": rate, "gpu": info}))
+    log(json.dumps({"env_steps_per_s": rates, "gpu": info}))
     log(info)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

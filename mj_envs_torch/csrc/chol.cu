@@ -1,10 +1,11 @@
 // Batched Cholesky factor and substitution for small SPD matrices
 // (the mass matrix M, nv = 33 on hammer-v0, and the Newton Hessian).
 //
-// Replaces three TPU kernels of mj_envs_tpu/physics/kernels.py:
+// Replaces four TPU kernels of mj_envs_tpu/physics/kernels.py:
 //   chol_factor        <- _chol_factor_kernel        (chol_factor_bm)
 //   chol_solve_fac     <- _chol_solve_mat_fac_kernel (_chol_solve_mat_fac_pallas)
 //   chol_factor_solve  <- _chol_solve_kernel         (_chol_solve_pallas)
+//   chol_solve_mat     <- _chol_solve_mat_kernel     (_chol_solve_mat_pallas)
 //
 // Layouts (row-major, batch-first): H (B, nv, nv); fac (B, nv, nv) with
 // fac[b, k, :] = column k of L (zero above the diagonal entry k), the
@@ -18,7 +19,8 @@
 //
 // Design: one block per env; the matrix lives in shared memory for the
 // whole factorization (each element is read from device memory once and
-// each output written once).  The factor is right-looking, as on the
+// each output written once).  The two factor-and-solve kernels never
+// write the factor to device memory.  The factor is right-looking, as on the
 // TPU: pivot inv_s = rsqrt(akk), column k = row k * inv_s (the working
 // matrix stays symmetric), then a rank-1 trailing update spread over
 // all threads.  A non-positive pivot yields NaN/inf, never a clamp or a
@@ -131,6 +133,23 @@ __global__ void chol_factor_solve_kernel(const float* __restrict__ H,
     x[(size_t)blockIdx.x * nv + e] = y[e];
 }
 
+__global__ void chol_solve_mat_kernel(const float* __restrict__ H,
+                                      const float* __restrict__ G,
+                                      float* __restrict__ X, int nv, int R) {
+  extern __shared__ float smem[];
+  float* A = smem;
+  float* Lt = A + nv * nv;
+  float* col = Lt + nv * nv;
+  float* Y = col + nv;
+  const size_t off = (size_t)blockIdx.x * nv * nv;
+  const size_t offY = (size_t)blockIdx.x * nv * R;
+  for (int e = threadIdx.x; e < nv * nv; e += blockDim.x) A[e] = H[off + e];
+  for (int e = threadIdx.x; e < nv * R; e += blockDim.x) Y[e] = G[offY + e];
+  chol_factor_smem(A, Lt, col, nv);
+  chol_subst_smem(Lt, Y, nv, R);
+  for (int e = threadIdx.x; e < nv * R; e += blockDim.x) X[offY + e] = Y[e];
+}
+
 int set_smem(const void* fn, size_t bytes) {
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -171,5 +190,16 @@ extern "C" int chol_factor_solve(const float* H, const float* g, float* x,
   if (B > 0)
     chol_factor_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
         H, g, x, nv);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chol_solve_mat(const float* H, const float* G, float* X,
+                              int B, int nv, int R, void* stream) {
+  const size_t smem = (size_t)(2 * nv * nv + nv + nv * R) * sizeof(float);
+  int err = set_smem((const void*)chol_solve_mat_kernel, smem);
+  if (err) return err;
+  if (B > 0)
+    chol_solve_mat_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+        H, G, X, nv, R);
   return (int)cudaGetLastError();
 }

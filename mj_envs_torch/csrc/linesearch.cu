@@ -1,10 +1,14 @@
 // Exact Newton linesearch on the piecewise-quadratic constraint cost,
-// returning the step alpha and the summed row cost at alpha.
+// returning the step alpha and, in the fused form, the summed row cost
+// at alpha.
 //
-// Replaces mj_envs_tpu/physics/kernels.py:_linesearch_cost_kernel
-// (_linesearch_cost_pallas, with the search of _linesearch_alpha_vals):
-// 12 bracket doublings of phi'(alpha), then 16 safeguarded
-// Newton/bisection steps, then one cost pass at the final alpha.
+// Replaces two TPU kernels of mj_envs_tpu/physics/kernels.py, one
+// template instantiated twice:
+//   linesearch_cost <- _linesearch_cost_kernel (_linesearch_cost_pallas)
+//   linesearch      <- _linesearch_kernel      (_linesearch_pallas)
+// Both run the search of _linesearch_alpha_vals: 12 bracket doublings of
+// phi'(alpha), then 16 safeguarded Newton/bisection steps; the fused
+// form adds one cost pass at the final alpha.
 //
 // Bound on the card: memory, barely.  The inputs are 4 float rows and
 // one bool row per env (nefc = 296 on hammer-v0, 2.6 MB at B = 512) and
@@ -30,7 +34,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int PER>
+template <int PER, bool COST>
 __global__ void linesearch_cost_kernel(
     const float* __restrict__ jar_g, const float* __restrict__ Jp_g,
     const float* __restrict__ D_g, const float* __restrict__ floss_g,
@@ -98,6 +102,10 @@ __global__ void linesearch_cost_kernel(
     alpha = inside ? a_newton : 0.5f * (lo + hi);
   }
 
+  if (!COST) {
+    if (lane == 0) alpha_out[env] = alpha;
+    return;
+  }
   // Row cost at the final alpha (solver._cost_rows, active rows only).
   float s = 0.0f;
 #pragma unroll
@@ -117,7 +125,7 @@ __global__ void linesearch_cost_kernel(
   }
 }
 
-template <int PER>
+template <int PER, bool COST>
 int launch(const float* jar, const float* Jp, const float* D,
            const float* floss, const uint8_t* active, const float* c1,
            const float* c2, float* alpha, float* cost, int B, int R,
@@ -125,34 +133,51 @@ int launch(const float* jar, const float* Jp, const float* D,
   constexpr int kWarps = 4;
   const int blocks = (B + kWarps - 1) / kWarps;
   if (blocks > 0)
-    linesearch_cost_kernel<PER><<<blocks, 32 * kWarps, 0, stream>>>(
+    linesearch_cost_kernel<PER, COST><<<blocks, 32 * kWarps, 0, stream>>>(
         jar, Jp, D, floss, active, c1, c2, alpha, cost, B, R, bracket_iters,
         ls_iters);
   return (int)cudaGetLastError();
 }
 
+template <bool COST>
+int dispatch(const float* jar, const float* Jp, const float* D,
+             const float* floss, const uint8_t* active, const float* c1,
+             const float* c2, float* alpha, float* cost, int B, int R,
+             int bracket_iters, int ls_iters, cudaStream_t s) {
+  const int per = (R + 31) / 32;
+  if (per <= 4)
+    return launch<4, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+                           B, R, bracket_iters, ls_iters, s);
+  if (per <= 10)
+    return launch<10, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+                            B, R, bracket_iters, ls_iters, s);
+  if (per <= 16)
+    return launch<16, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+                            B, R, bracket_iters, ls_iters, s);
+  if (per <= 32)
+    return launch<32, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+                            B, R, bracket_iters, ls_iters, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Returns cudaErrorInvalidValue when R exceeds 32 * 32 rows.
+// Both return cudaErrorInvalidValue when R exceeds 32 * 32 rows.
 extern "C" int linesearch_cost(const float* jar, const float* Jp,
                                const float* D, const float* floss,
                                const uint8_t* active, const float* c1,
                                const float* c2, float* alpha, float* cost,
                                int B, int R, int bracket_iters, int ls_iters,
                                void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int per = (R + 31) / 32;
-  if (per <= 4)
-    return launch<4>(jar, Jp, D, floss, active, c1, c2, alpha, cost, B, R,
-                     bracket_iters, ls_iters, s);
-  if (per <= 10)
-    return launch<10>(jar, Jp, D, floss, active, c1, c2, alpha, cost, B, R,
-                      bracket_iters, ls_iters, s);
-  if (per <= 16)
-    return launch<16>(jar, Jp, D, floss, active, c1, c2, alpha, cost, B, R,
-                      bracket_iters, ls_iters, s);
-  if (per <= 32)
-    return launch<32>(jar, Jp, D, floss, active, c1, c2, alpha, cost, B, R,
-                      bracket_iters, ls_iters, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<true>(jar, Jp, D, floss, active, c1, c2, alpha, cost, B,
+                        R, bracket_iters, ls_iters, (cudaStream_t)stream);
+}
+
+extern "C" int linesearch(const float* jar, const float* Jp, const float* D,
+                          const float* floss, const uint8_t* active,
+                          const float* c1, const float* c2, float* alpha,
+                          int B, int R, int bracket_iters, int ls_iters,
+                          void* stream) {
+  return dispatch<false>(jar, Jp, D, floss, active, c1, c2, alpha, nullptr,
+                         B, R, bracket_iters, ls_iters, (cudaStream_t)stream);
 }

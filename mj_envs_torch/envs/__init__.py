@@ -1,15 +1,25 @@
-"""Task-environment registry of the PyTorch port (hammer-v0 in this
-slice of the port; door/pen/relocate follow)."""
+"""Task-environment registry of the PyTorch port (the JAX package's
+names: hammer-v0 / door-v0 / pen-v0 / relocate-v0 with episode caps
+200/200/100/200, and the bare task names)."""
 from __future__ import annotations
 
 from typing import Optional
 
 from .base import AdroitEnv, EnvState, ModelVar
+from .door import DoorEnv
 from .hammer import HammerEnv
+from .pen import PenEnv
+from .relocate import RelocateEnv
 
 _REGISTRY = {
     "hammer-v0": HammerEnv,
+    "door-v0": DoorEnv,
+    "pen-v0": PenEnv,
+    "relocate-v0": RelocateEnv,
     "hammer": HammerEnv,
+    "door": DoorEnv,
+    "pen": PenEnv,
+    "relocate": RelocateEnv,
 }
 
 
@@ -25,4 +35,5 @@ def make(env_id: str, variation_type: Optional[str] = None,
                              **kwargs)
 
 
-__all__ = ["make", "AdroitEnv", "EnvState", "ModelVar", "HammerEnv"]
+__all__ = ["make", "AdroitEnv", "EnvState", "ModelVar", "HammerEnv",
+           "DoorEnv", "PenEnv", "RelocateEnv"]

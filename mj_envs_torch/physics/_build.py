@@ -21,7 +21,7 @@ import time
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(PKG, "_build")
-SOURCES = ("chol.cu", "linesearch.cu", "noslip.cu")
+SOURCES = ("chol.cu", "fk.cu", "linesearch.cu", "noslip.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -98,11 +98,15 @@ def library_path() -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    PP, PL = ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong)
     sigs = {
+        "fk": [P, P, PP, PL, PP] + [I] * 7 + [P],
         "chol_factor": [P, P, I, I, P],
         "chol_solve_fac": [P, P, P, I, I, I, P],
         "chol_factor_solve": [P, P, P, I, I, P],
+        "chol_solve_mat": [P, P, P, I, I, I, P],
         "linesearch_cost": [P] * 9 + [I, I, I, I, P],
+        "linesearch": [P] * 8 + [I, I, I, I, P],
         "noslip_sweep": [P] * 9 + [I, I, I, F, P],
     }
     for name, args in sigs.items():

@@ -15,12 +15,17 @@ from ..kinematics import Kin
 from ..maths import cross, norm
 from . import narrowphase as NP
 
-# Narrowphase function and contact slots per (type1, type2).  The sphere
-# pairs belong to door/pen/relocate and wait for their slice of the port.
+# Narrowphase function and contact slots per (type1, type2): all 14 pair
+# types, so `mjcf/builder.py` lays out every task as the JAX package does.
 _FNS = {
+    (GEOM_PLANE, GEOM_SPHERE): (NP.plane_sphere, 1),
     (GEOM_PLANE, GEOM_CAPSULE): (NP.plane_capsule, 2),
     (GEOM_PLANE, GEOM_CYLINDER): (NP.plane_cylinder, 4),
     (GEOM_PLANE, GEOM_BOX): (NP.plane_box, 8),
+    (GEOM_SPHERE, GEOM_SPHERE): (NP.sphere_sphere, 1),
+    (GEOM_SPHERE, GEOM_CAPSULE): (NP.sphere_capsule, 1),
+    (GEOM_SPHERE, GEOM_CYLINDER): (NP.sphere_cylinder, 1),
+    (GEOM_SPHERE, GEOM_BOX): (NP.sphere_box, 1),
     (GEOM_CAPSULE, GEOM_CAPSULE): (NP.capsule_capsule, 2),
     (GEOM_CAPSULE, GEOM_CYLINDER): (NP.capsule_cylinder, 2),
     (GEOM_CAPSULE, GEOM_BOX): (NP.capsule_box, 2),
@@ -28,20 +33,8 @@ _FNS = {
     (GEOM_CYLINDER, GEOM_BOX): (NP.cylinder_box, 4),
     (GEOM_BOX, GEOM_BOX): (NP.box_box, 24),
 }
-_UNPORTED = {
-    (GEOM_PLANE, GEOM_SPHERE): "plane_sphere",
-    (GEOM_SPHERE, GEOM_SPHERE): "sphere_sphere",
-    (GEOM_SPHERE, GEOM_CAPSULE): "sphere_capsule",
-    (GEOM_SPHERE, GEOM_CYLINDER): "sphere_cylinder",
-    (GEOM_SPHERE, GEOM_BOX): "sphere_box",
-}
-
-# Contact slots a pair contributes to the global buffer (all 14 pair
-# types, so `mjcf/builder.py` lays out every task as the JAX package does).
+# Contact slots a pair contributes to the global buffer.
 _SLOTS = {key: mc for key, (fn, mc) in _FNS.items()}
-_SLOTS.update({(GEOM_PLANE, GEOM_SPHERE): 1, (GEOM_SPHERE, GEOM_SPHERE): 1,
-               (GEOM_SPHERE, GEOM_CAPSULE): 1, (GEOM_SPHERE, GEOM_CYLINDER): 1,
-               (GEOM_SPHERE, GEOM_BOX): 1})
 
 
 class Contact(NamedTuple):
@@ -101,10 +94,6 @@ def narrowphase_all(m: Model, kin: Kin) -> Contact:
         m.geom_size.expand(B, -1, -1)
     chunks_d, chunks_p, chunks_n = [], [], []
     for key, pids in _groups(s):
-        if key not in _FNS:
-            raise NotImplementedError(
-                f"narrowphase pair type {_UNPORTED.get(key, key)} is not "
-                "ported yet (sphere pairs come with door/pen/relocate)")
         fn, _ = _FNS[key]
         P = len(pids)
         pids_np = np.asarray(pids)

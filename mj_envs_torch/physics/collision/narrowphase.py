@@ -1,4 +1,4 @@
-"""Analytic narrowphase for hammer-v0's primitive pair types
+"""Analytic narrowphase for the suite's fourteen primitive pair types
 (`mj_envs_tpu/physics/collision/narrowphase.py`), batch-first.
 
 Every pair function takes one batch of N (env, pair) instances —
@@ -94,9 +94,21 @@ def _ortho(v):
     return w / norm(w)[..., None]
 
 
+def _one(dist, pos, n):
+    """One contact candidate: add the candidate axis."""
+    return dist[..., None], pos[..., None, :], n[..., None, :]
+
+
 # ---------------------------------------------------------------------------
 # plane-X (plane normal = column 2 of its frame; surface through pos1)
 # ---------------------------------------------------------------------------
+
+def plane_sphere(p1, m1, s1, p2, m2, s2, margin):
+    n = m1[..., :, 2]
+    r = s2[..., 0]
+    dist = _vdot(n, p2 - p1) - r
+    return _one(dist, p2 - n * (r + 0.5 * dist)[..., None], n)
+
 
 def plane_capsule(p1, m1, s1, p2, m2, s2, margin):
     n = m1[..., :, 2]
@@ -241,6 +253,46 @@ def _sphere_point_box(pt_w, r, p2, m2, s2):
     dist = torch.where(inside, -ln, ln) - r
     pos = _midpos(pt_w + n * r[..., None], surf)
     return dist, pos, n
+
+
+# ---------------------------------------------------------------------------
+# sphere-X (one contact; the normal points from the sphere, geom1)
+# ---------------------------------------------------------------------------
+
+def sphere_sphere(p1, m1, s1, p2, m2, s2, margin):
+    r1, r2 = s1[..., 0:1], s2[..., 0:1]
+    d = p2 - p1
+    n, ln = _safe_normalize(d, _e(2, d).expand(d.shape))
+    return _one(ln - s1[..., 0] - s2[..., 0],
+                _midpos(p1 + n * r1, p2 - n * r2), n)
+
+
+def sphere_capsule(p1, m1, s1, p2, m2, s2, margin):
+    r1, r2 = s1[..., 0:1], s2[..., 0:1]
+    axis = m2[..., :, 2]
+    hl = s2[..., 1:2]
+    c = _closest_on_segment(p2 - axis * hl, p2 + axis * hl, p1)
+    d = c - p1
+    n, ln = _safe_normalize(d, _e(2, d).expand(d.shape))
+    return _one(ln - s1[..., 0] - s2[..., 0],
+                _midpos(p1 + n * r1, c - n * r2), n)
+
+
+def sphere_cylinder(p1, m1, s1, p2, m2, s2, margin):
+    axis = m2[..., :, 2]
+    surf, inside = _closest_on_cylinder_surface(p1, p2, axis, s2[..., 0],
+                                                s2[..., 1])
+    d = surf - p1
+    ln = norm(d)
+    n = torch.where((ln > 1e-12)[..., None],
+                    d / torch.clamp(ln, min=1e-12)[..., None], _ortho(axis))
+    n = torch.where(inside[..., None], -n, n)
+    return _one(torch.where(inside, -ln, ln) - s1[..., 0],
+                _midpos(p1 + n * s1[..., 0:1], surf), n)
+
+
+def sphere_box(p1, m1, s1, p2, m2, s2, margin):
+    return _one(*_sphere_point_box(p1, s1[..., 0], p2, m2, s2))
 
 
 # ---------------------------------------------------------------------------

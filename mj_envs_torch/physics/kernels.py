@@ -1,7 +1,7 @@
 """Solver kernels of the PyTorch port and their plain PyTorch versions
 (`mj_envs_tpu/physics/kernels.py`).
 
-Five entry points carry the solver's hot loops on the card, hand-written
+Seven entry points carry the solver's hot loops on the card, hand-written
 in CUDA (`mj_envs_torch/csrc/`, built by `_build.py`):
 
 * ``chol_factor``        — batched Cholesky factor (TPU `_chol_factor_kernel`)
@@ -9,10 +9,18 @@ in CUDA (`mj_envs_torch/csrc/`, built by `_build.py`):
                            (TPU `_chol_solve_mat_fac_kernel`)
 * ``chol_factor_solve``  — factor + solve, one right-hand side
                            (TPU `_chol_solve_kernel`)
+* ``chol_solve_mat``     — factor + solve, R right-hand sides, the factor
+                           never leaving shared memory
+                           (TPU `_chol_solve_mat_kernel`)
 * ``linesearch_cost``    — exact Newton linesearch + row cost at alpha
                            (TPU `_linesearch_cost_kernel`)
+* ``linesearch``         — the same search, alpha only
+                           (TPU `_linesearch_kernel`)
 * ``noslip_sweep``       — projected Gauss-Seidel noslip sweeps
                            (TPU `_noslip_kernel`)
+
+The eighth kernel, the fused forward kinematics (``fk``, TPU
+`_fk_kernel`), has its wrapper in `kinematics.py` and is counted here.
 
 Dispatch mirrors the JAX package's `custom_vmap` rule (float32 on the
 accelerator -> kernel): a CUDA float32 tensor launches the kernel, a CPU
@@ -29,8 +37,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-KERNELS = ("chol_factor", "chol_solve_fac", "chol_factor_solve",
-           "linesearch_cost", "noslip_sweep")
+KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
+           "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -124,10 +132,21 @@ def chol_factor_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def linesearch_cost_cuda(jar, Jp, D, floss, active, c1, c2,
-                         bracket_iters: int = 12, ls_iters: int = 16):
-    """K5: (alpha (B,), cost (B,))."""
+def chol_solve_mat_cuda(H: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """K8: X (B, nv, R) = H^-1 G, factor and solve in one launch."""
     from ._build import load
+    B, nv, R = G.shape
+    _check("H", H, (B, nv, nv))
+    _check("G", G, (B, nv, R))
+    X = torch.empty_like(G)
+    err = load().chol_solve_mat(H.data_ptr(), G.data_ptr(), X.data_ptr(),
+                                B, nv, R, _stream(G))
+    _raise_if(err, "chol_solve_mat")
+    launches["chol_solve_mat"] += 1
+    return X
+
+
+def _check_linesearch(jar, Jp, D, floss, active, c1, c2):
     B, R = jar.shape
     for name, t in (("jar", jar), ("Jp", Jp), ("D", D), ("floss", floss)):
         _check(name, t, (B, R))
@@ -136,6 +155,14 @@ def linesearch_cost_cuda(jar, Jp, D, floss, active, c1, c2,
     _check("active", active, (B, R), active.dtype)
     _check("c1", c1, (B,))
     _check("c2", c2, (B,))
+    return B, R
+
+
+def linesearch_cost_cuda(jar, Jp, D, floss, active, c1, c2,
+                         bracket_iters: int = 12, ls_iters: int = 16):
+    """K5: (alpha (B,), cost (B,))."""
+    from ._build import load
+    B, R = _check_linesearch(jar, Jp, D, floss, active, c1, c2)
     alpha = torch.empty_like(c1)
     cost = torch.empty_like(c1)
     err = load().linesearch_cost(
@@ -145,6 +172,21 @@ def linesearch_cost_cuda(jar, Jp, D, floss, active, c1, c2,
     _raise_if(err, "linesearch_cost")
     launches["linesearch_cost"] += 1
     return alpha, cost
+
+
+def linesearch_cuda(jar, Jp, D, floss, active, c1, c2,
+                    bracket_iters: int = 12, ls_iters: int = 16):
+    """K7: alpha (B,)."""
+    from ._build import load
+    B, R = _check_linesearch(jar, Jp, D, floss, active, c1, c2)
+    alpha = torch.empty_like(c1)
+    err = load().linesearch(
+        jar.data_ptr(), Jp.data_ptr(), D.data_ptr(), floss.data_ptr(),
+        active.data_ptr(), c1.data_ptr(), c2.data_ptr(), alpha.data_ptr(),
+        B, R, bracket_iters, ls_iters, _stream(jar))
+    _raise_if(err, "linesearch")
+    launches["linesearch"] += 1
+    return alpha
 
 
 def noslip_sweep_cuda(A, a_safe, lo, hi, gate, r0, u0, iters: int,
@@ -199,9 +241,14 @@ def chol_solve_fac_plain(fac: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(G, fac.transpose(-1, -2))
 
 
-def linesearch_cost_plain(jar, Jp, D, floss, active, c1, c2,
-                          bracket_iters: int = 12, ls_iters: int = 16):
-    """`_linesearch_cost_ref` over the env axis: rows (B, R), c1/c2 (B,)."""
+def chol_solve_mat_plain(H: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    return torch.cholesky_solve(G, chol_lower_plain(H))
+
+
+def linesearch_plain(jar, Jp, D, floss, active, c1, c2,
+                     bracket_iters: int = 12, ls_iters: int = 16):
+    """`_linesearch_ref` over the env axis: rows (B, R), c1/c2 (B,);
+    returns alpha (B,)."""
     active = active.bool()
     is_fric = floss > 0
     actf = active.to(jar.dtype)
@@ -235,6 +282,15 @@ def linesearch_cost_plain(jar, Jp, D, floss, active, c1, c2,
         a_newton = alpha - d1 / torch.clamp(d2, min=1e-30)
         inside = (a_newton > lo) & (a_newton < hi)
         alpha = torch.where(inside, a_newton, 0.5 * (lo + hi))
+    return alpha
+
+
+def linesearch_cost_plain(jar, Jp, D, floss, active, c1, c2,
+                          bracket_iters: int = 12, ls_iters: int = 16):
+    """`_linesearch_cost_ref` over the env axis: (alpha, cost), each (B,)."""
+    alpha = linesearch_plain(jar, Jp, D, floss, active, c1, c2,
+                             bracket_iters, ls_iters)
+    actf = active.bool().to(jar.dtype)
     cost = (rows_cost_at(jar, Jp, D, floss, alpha) * actf).sum(-1)
     return alpha, cost
 
@@ -301,6 +357,24 @@ def chol_solve_mat_fac(fac: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     if _on_card(fac, G):
         return chol_solve_fac_cuda(fac.contiguous(), G.contiguous())
     return chol_solve_fac_plain(fac, G)
+
+
+def chol_solve_mat(H: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """X = H^-1 G (B, nv, R) for SPD H (B, nv, nv): factor and solve."""
+    if _on_card(H, G):
+        return chol_solve_mat_cuda(H.contiguous(), G.contiguous())
+    return chol_solve_mat_plain(H, G)
+
+
+def linesearch(jar, Jp, D, floss, active, c1, c2,
+               bracket_iters: int = 12, ls_iters: int = 16):
+    """The exact Newton linesearch's alpha, per env."""
+    if _on_card(jar, Jp, D, floss, active, c1, c2):
+        return linesearch_cuda(
+            *(t.contiguous() for t in (jar, Jp, D, floss, active, c1, c2)),
+            bracket_iters, ls_iters)
+    return linesearch_plain(jar, Jp, D, floss, active, c1, c2,
+                            bracket_iters, ls_iters)
 
 
 def linesearch_cost(jar, Jp, D, floss, active, c1, c2,

@@ -1,19 +1,24 @@
 """Forward kinematics and com-frame quantities, batch-first
-(`mj_envs_tpu/physics/kinematics.py` `_kinematics_ref`).
+(`mj_envs_tpu/physics/kinematics.py`).
 
-The body tree is walked in Python (nbody <= ~33 in this suite); every
-per-body op runs on all envs at once.  Subtree sums are matmuls against
-static masks.  This is the configuration of the JAX package's batched
-path off the TPU (`_kinematics_ref` under vmap); the fused FK kernel is
-a later slice of the port.
+`kinematics(m, qpos)` is the front end, with the rule of the solver
+kernels (`kernels._on_card`): a CUDA float32 `qpos` launches the fused FK
+kernel (`csrc/fk.cu`, the TPU's `fk_kernel._fk_kernel`), a CPU tensor runs
+`kinematics_plain`, anything else raises.
+
+`kinematics_plain` is `_kinematics_ref` batched: the body tree is walked
+in Python (nbody <= ~33 in this suite) and every per-body op runs on all
+envs at once; subtree sums are matmuls against static masks.
 """
 from __future__ import annotations
 
+import weakref
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from . import maths
+from . import kernels, maths
 from .model import Model, JNT_HINGE, JNT_SLIDE
 
 
@@ -34,8 +39,8 @@ class Kin(NamedTuple):
     cinert: torch.Tensor       # (B, nbody, 6, 6)
 
 
-def kinematics(m: Model, qpos: torch.Tensor) -> Kin:
-    """Forward kinematics for qpos (B, nq)."""
+def kinematics_plain(m: Model, qpos: torch.Tensor) -> Kin:
+    """Forward kinematics for qpos (B, nq), plain PyTorch."""
     s = m.spec
     dtype = qpos.dtype
     dev = qpos.device
@@ -122,6 +127,108 @@ def kinematics(m: Model, qpos: torch.Tensor) -> Kin:
                xanchor=xanchor, xaxis=xaxis,
                subtree_com=subtree_com, root_com=root_com,
                cdof=cdof, cinert=cinert)
+
+
+# ---------------------------------------------------------------------------
+# The FK kernel (csrc/fk.cu)
+# ---------------------------------------------------------------------------
+
+FK_MAX_BODY = 64    # fk.cu's kMaxBody: per-thread body arrays
+
+# Per ModelSpec, per device: (tree table, body_rootid as a long tensor).
+_TABLES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def fk_field_shapes(s) -> dict:
+    """The model fields the FK kernel reads, in fk.cu's order, with their
+    shared shapes.  Each arrives shared, with this shape, or per env,
+    with a leading env axis (a task's ModelVar); the kernel reads a
+    shared field with batch stride 0."""
+    nb, nj, ng, ns = s.nbody, s.njnt, s.ngeom, s.nsite
+    return dict(body_pos=(nb, 3), body_quat=(nb, 4), body_ipos=(nb, 3),
+                body_iquat=(nb, 4), jnt_pos=(nj, 3), jnt_axis=(nj, 3),
+                geom_pos=(ng, 3), geom_quat=(ng, 4), site_pos=(ns, 3),
+                site_quat=(ns, 4), body_mass=(nb,), body_inertia=(nb, 3))
+
+
+def fk_table(s) -> np.ndarray:
+    """The static body tree as fk.cu reads it (int32; layout in the
+    source).  Raises for a model the kernel does not take."""
+    if s.nbody > FK_MAX_BODY:
+        raise ValueError(f"the FK kernel takes at most {FK_MAX_BODY} "
+                         f"bodies; this model has {s.nbody}")
+    jt = np.asarray(s.jnt_type)
+    if s.nv != s.njnt or s.nq != s.njnt or not np.all(
+            (jt == JNT_HINGE) | (jt == JNT_SLIDE)):
+        raise ValueError("the FK kernel takes 1-dof hinge and slide joints "
+                         "only (nq == nv == njnt)")
+    jb = np.asarray(s.jnt_bodyid, dtype=np.int64)
+    order = np.argsort(jb, kind="stable")     # a body's joints in j order
+    adr = np.concatenate([[0], np.cumsum(np.bincount(jb, minlength=s.nbody))])
+    return np.concatenate([
+        s.body_parentid, adr, order, jt, s.jnt_qposadr, jb, s.geom_bodyid,
+        s.site_bodyid, s.body_rootid]).astype(np.int32)
+
+
+def _tables(s, device):
+    per_dev = _TABLES.setdefault(s, {})
+    if device not in per_dev:
+        per_dev[device] = (
+            torch.as_tensor(fk_table(s), device=device),
+            torch.as_tensor(s.body_rootid, dtype=torch.long, device=device))
+    return per_dev[device]
+
+
+def fk_cuda(m: Model, qpos: torch.Tensor) -> Kin:
+    """K1: the whole FK of B envs in one launch; qpos (B, nq) float32."""
+    import ctypes
+    from ._build import load
+    s = m.spec
+    B = qpos.shape[0]
+    kernels._check("qpos", qpos, (B, s.nq))
+    tab, rootid = _tables(s, qpos.device)
+    ptrs, strides = [], []
+    for name, shape in fk_field_shapes(s).items():
+        t = getattr(m, name)
+        per_env = t.dim() == len(shape) + 1
+        kernels._check(name, t, ((B,) + shape) if per_env else shape)
+        ptrs.append(t.data_ptr())
+        strides.append(int(np.prod(shape)) if per_env else 0)
+    nb, nj = s.nbody, s.njnt
+
+    def out(*shape):
+        return torch.empty((B,) + shape, dtype=qpos.dtype, device=qpos.device)
+
+    outs = [out(nb, 3), out(nb, 4), out(nb, 3, 3), out(nb, 3),
+            out(s.ngeom, 3), out(s.ngeom, 3, 3), out(s.nsite, 3),
+            out(s.nsite, 3, 3), out(nj, 3), out(nj, 3), out(nb, 3),
+            out(nj, 6), out(nb, 6, 6)]
+    err = load().fk(
+        qpos.data_ptr(), tab.data_ptr(),
+        (ctypes.c_void_p * len(ptrs))(*ptrs),
+        (ctypes.c_longlong * len(strides))(*strides),
+        (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs)),
+        B, s.nq, nb, nj, s.ngeom, s.nsite, tab.numel(),
+        kernels._stream(qpos))
+    kernels._raise_if(err, "fk")
+    kernels.launches["fk"] += 1
+    (xpos, xquat, xmat, xipos, geom_xpos, geom_xmat, site_xpos, site_xmat,
+     xanchor, xaxis, subtree_com, cdof, cinert) = outs
+    return Kin(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
+               geom_xpos=geom_xpos, geom_xmat=geom_xmat,
+               site_xpos=site_xpos, site_xmat=site_xmat,
+               xanchor=xanchor, xaxis=xaxis, subtree_com=subtree_com,
+               root_com=subtree_com[:, rootid], cdof=cdof, cinert=cinert)
+
+
+def kinematics(m: Model, qpos: torch.Tensor) -> Kin:
+    """Forward kinematics for qpos (B, nq): the FK kernel for a CUDA
+    float32 qpos, the plain version for a CPU one; anything else raises."""
+    if kernels._on_card(qpos):
+        m = m.replace(**{f: getattr(m, f).contiguous()
+                         for f in fk_field_shapes(m.spec)})
+        return fk_cuda(m, qpos.contiguous())
+    return kinematics_plain(m, qpos)
 
 
 def point_jacobian(m: Model, kin: Kin, points: torch.Tensor,

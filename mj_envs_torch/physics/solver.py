@@ -121,13 +121,14 @@ def newton_solve(M: torch.Tensor, qacc_smooth: torch.Tensor, rows: Rows,
 
 
 def noslip(M: torch.Tensor, rows: Rows, res: SolveResult, n_fric_dof: int,
-           ncmax: int, iterations: int, M_fac: torch.Tensor,
+           ncmax: int, iterations: int, M_fac: torch.Tensor | None = None,
            tol: float = NOSLIP_TOL) -> SolveResult:
     """Noslip post-pass: Gauss-Seidel over the friction rows only, without
     regularization — dof friction-loss rows box-clamped to
     +-frictionloss, and per contact facet pair the difference updated
     with the sum (the normal force) held fixed.  X = M^-1 D^T comes from
-    the mass-matrix factor `M_fac` of `kernels.chol_solve_factor`."""
+    the mass-matrix factor `M_fac` of `kernels.chol_solve_factor` or,
+    without one, from factoring M here (`kernels.chol_solve_mat`)."""
     B, nefc = rows.aref.shape
     nv = M.shape[-1]
     dtype = M.dtype
@@ -142,8 +143,10 @@ def noslip(M: torch.Tensor, rows: Rows, res: SolveResult, n_fric_dof: int,
     D_all = torch.cat([rows.J[:, :n_fric_dof], Jd_pairs], dim=1)  # (B, R, nv)
     b_all = torch.cat([rows.aref[:, :n_fric_dof], bd_pairs], dim=1)
 
-    X = kernels.chol_solve_mat_fac(M_fac, D_all.transpose(-1, -2))  # (B,nv,R)
-    a_diag = (D_all.transpose(-1, -2) * X).sum(-2)                 # (B, R)
+    Dt = D_all.transpose(-1, -2)
+    X = kernels.chol_solve_mat(M, Dt) if M_fac is None \
+        else kernels.chol_solve_mat_fac(M_fac, Dt)                  # (B,nv,R)
+    a_diag = (Dt * X).sum(-2)                                      # (B, R)
     a_safe = torch.where(a_diag > 1e-12, a_diag, torch.ones_like(a_diag))
 
     fl_dof = rows.floss[:, :n_fric_dof]

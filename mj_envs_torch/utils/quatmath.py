@@ -1,6 +1,7 @@
 """Rotation conversions of the task layer (`mj_envs_tpu/utils/quatmath.py`),
 with the reference's exact formulas: hammer-v0's observation embeds
-quat2euler(body_xquat).  Batched over leading axes.
+quat2euler(body_xquat) and pen-v0's reset draws its target orientation
+through euler2quat.  Batched over leading axes.
 """
 from __future__ import annotations
 
@@ -8,6 +9,17 @@ import numpy as np
 import torch
 
 _EPS4 = float(np.finfo(np.float64).eps) * 4.0
+
+
+def euler2quat(euler: torch.Tensor) -> torch.Tensor:
+    """Intrinsic xyz Euler angles (..., 3) -> (..., 4) wxyz quaternion."""
+    ai, aj, ak = euler[..., 2] / 2, -euler[..., 1] / 2, euler[..., 0] / 2
+    si, sj, sk = torch.sin(ai), torch.sin(aj), torch.sin(ak)
+    ci, cj, ck = torch.cos(ai), torch.cos(aj), torch.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    return torch.stack([cj * cc + sj * ss, cj * cs - sj * sc,
+                        -(cj * ss + sj * cc), cj * sc - sj * cs], dim=-1)
 
 
 def quat2mat(quat: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Print the port's largest errors against the JAX package, stage by
-stage, on the hammer states of `test_torch_physics.py` and the 8-env
-trajectory of `test_torch_hammer.py` (float32, CPU).
+stage, on the hammer states of `test_torch_physics.py`; FK on each
+task's tree as `test_torch_fk.py` runs it; the sphere pair functions;
+and the 8-env trajectory of `test_torch_hammer.py` for each of the four
+tasks (float32, CPU).
 
 The tests assert bounds; this prints the measured maxima behind them:
 
@@ -19,8 +21,11 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import test_torch_fk as TF  # noqa: E402
 import test_torch_hammer as TH  # noqa: E402
 import test_torch_physics as T  # noqa: E402
+
+TASKS = ("hammer-v0", "door-v0", "pen-v0", "relocate-v0")
 
 
 def report(name, got, want, mask=None):
@@ -79,29 +84,81 @@ def stages():
         report(f"pipeline.step {f}", getattr(out, f), getattr(out_j, f))
 
 
-def trajectory():
-    jenv = TH.jenvs.make("hammer-v0")
+def fk(task):
+    """FK of `test_torch_fk.py`: largest error over the Kin fields,
+    shared and per-env model fields (its bound is 2e-5 * max(1, |x|))."""
+    jm = TF.jenvs.make(task).model
+    spec = TF.tenvs.make(task, device="cpu").spec
+    rng = np.random.default_rng(3)
+    qpos = (np.asarray(jm.qpos0)[None] + 0.3 * rng.standard_normal(
+        (TF.B, spec.nq))).astype(np.float32)
+    tm = TF.Model.from_numpy({n: np.asarray(getattr(jm, n))
+                              for n in TF.Model.leaf_names()}, spec,
+                             device="cpu")
+    for label, fields in (("shared", {}), ("per-env", TF._per_env_fields(
+            jm, TF.PER_ENV[task], rng))):
+        fn = lambda f, q: TF.JK._kinematics_ref(jm.replace(**f), q)  # noqa
+        k_j = jax.jit(jax.vmap(fn, in_axes=({k: 0 for k in fields}, 0)))(
+            {k: jax.numpy.asarray(v) for k, v in fields.items()}, qpos)
+        k_t = TF.TK.kinematics(tm.replace(**{k: torch.as_tensor(v) for k, v
+                                             in fields.items()}),
+                               torch.as_tensor(qpos))
+        report(f"{task} fk, {label} fields",
+               np.concatenate([getattr(k_t, f).numpy().ravel()
+                               for f in TF.TK.Kin._fields]),
+               np.concatenate([np.asarray(getattr(k_j, f)).ravel()
+                               for f in TF.TK.Kin._fields]))
+
+
+def sphere_pairs():
+    """The five sphere pair functions on the random geometry of
+    `test_torch_physics.py::test_sphere_pair_functions`."""
+    import pytest
+    for name in ("plane_sphere", "sphere_sphere", "sphere_capsule",
+                 "sphere_cylinder", "sphere_box"):
+        got = {}
+
+        def close(t, j, err_msg="", **tol):
+            got[err_msg.split()[-1]] = (t, j)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(T, "close", close)
+            T.test_sphere_pair_functions(name)
+        for f, (t, j) in got.items():
+            report(f"{name} {f}", t, j)
+
+
+def trajectory(task):
+    """`test_torch_hammer.py`'s 8-env auto-reset trajectory for `task`:
+    the largest error over its steps."""
+    jenv = TH.jenvs.make(task)
     jv = TH.JVectorEnv(jenv, TH.N, chunk_size=TH.CHUNK)
-    tenv = TH.tenvs.make("hammer-v0", device="cpu")
+    tenv = TH.tenvs.make(task, device="cpu")
     tv = TH.VectorEnv(tenv, TH.N, chunk_size=TH.CHUNK)
     tv.reset(seed=0)
     st_j = jax.jit(jv.reset)(jax.random.PRNGKey(0))
     st_t = TH.to_port(st_j)
     step = jax.jit(jv.step)
     rng = np.random.default_rng(0)
-    for i in range(TH.STEPS):
+    got = {f: [] for f in ("qpos", "qvel", "obs", "reward")}
+    for _ in range(TH.STEPS):
         a = rng.uniform(-1.0, 1.0, (TH.N, tenv.nu)).astype(np.float32)
         st_j = step(st_j, a)
         st_t = tv.step(st_t, torch.as_tensor(a))
-        for f in ("qpos", "qvel"):
-            report(f"env step {i + 1} {f}", getattr(st_t.data, f),
-                   getattr(st_j.data, f))
-        for f in ("obs", "reward"):
-            report(f"env step {i + 1} {f}", getattr(st_t, f),
-                   getattr(st_j, f))
+        for f in got:
+            src_t = st_t.data if f in ("qpos", "qvel") else st_t
+            src_j = st_j.data if f in ("qpos", "qvel") else st_j
+            got[f].append((getattr(src_t, f), getattr(src_j, f)))
+    for f, pairs in got.items():
+        report(f"{task} {TH.STEPS} env steps {f}",
+               torch.stack([t for t, _ in pairs]),
+               np.stack([np.asarray(j) for _, j in pairs]))
 
 
 if __name__ == "__main__":
     torch.set_num_threads(4)
     stages()
-    trajectory()
+    sphere_pairs()
+    for task in TASKS:
+        fk(task)
+        trajectory(task)

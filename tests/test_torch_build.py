@@ -83,9 +83,9 @@ def test_hammer_shapes():
 
 @pytest.mark.parametrize("task", ["door", "pen", "relocate"])
 def test_other_tasks_parse_and_build(task):
-    """Spec and f32 leaves of the other three tasks match too.  A scene
-    with sphere collision pairs needs their pair functions, which raise
-    (naming the pair type) until they are ported."""
+    """Spec and f32 leaves of the other three tasks match too, and each
+    scene collides at qpos0 (relocate's through the sphere pair
+    functions, which `test_torch_physics.py` holds against JAX)."""
     jm = JB.build_from_xml(jxml(task), dtype=np.float32)
     tm = TB.build_from_xml(txml(task), dtype=torch.float32, device="cpu")
     _compare_spec(jm.spec, tm.spec)
@@ -94,12 +94,7 @@ def test_other_tasks_parse_and_build(task):
 
     from mj_envs_torch.physics import kinematics as K
     from mj_envs_torch.physics.collision import driver as C
-    from mj_envs_torch.physics.model import GEOM_SPHERE
     s = tm.spec
-    kin = K.kinematics(tm, tm.qpos0[None])
-    if np.any(s.geom_type[np.r_[s.pair_geom1, s.pair_geom2]] == GEOM_SPHERE):
-        with pytest.raises(NotImplementedError, match="sphere"):
-            C.collide(tm, kin, 32)
-    else:
-        con, cc = C.collide(tm, kin, 32)
-        assert con.dist.shape == (1, s.ncon_cap)
+    con, cc = C.collide(tm, K.kinematics(tm, tm.qpos0[None]), 32)
+    assert con.dist.shape == (1, s.ncon_cap)
+    assert bool(torch.isfinite(con.dist).all())

@@ -1,5 +1,6 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on
-the card.
+the card: the solver kernels on the shared probe generators, and the FK
+kernel on each task's own tree with its per-env model fields.
 
 These tests need an NVIDIA GPU and skip without one.  They import
 neither JAX nor the JAX package, so they run on a machine with the card
@@ -103,3 +104,56 @@ def test_cuda_noslip_sweep(cuda):
     u_k, u_p = _both(lambda *a: TK.noslip_sweep(*a, 20, tol=0.0), args, cuda)
     assert TK.launches["noslip_sweep"] == n + 1
     _close(u_k, u_p, 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_linesearch(cuda):
+    args = TK.random_linesearch_problem(np.random.default_rng(14), 64, 296)
+    n = TK.launches["linesearch"]
+    a_k, a_p = _both(TK.linesearch, args, cuda)
+    assert TK.launches["linesearch"] == n + 1
+    # alpha as in test_cuda_linesearch_cost; K5 and K7 run one search.
+    _close(a_k, a_p, 0.0, 2e-3 * float(a_p.abs().max()))
+    a_c, _ = TK.linesearch_cost(*(torch.as_tensor(np.asarray(x)).to(cuda)
+                                  for x in args))
+    assert torch.equal(a_k, a_c)
+
+
+@pytest.mark.cuda
+def test_cuda_chol_solve_mat(cuda):
+    H, _, G = TK.random_spd_problem(np.random.default_rng(15), 64, 33, 129)
+    n = TK.launches["chol_solve_mat"]
+    X_k, X_p = _both(TK.chol_solve_mat, (H, G), cuda)
+    assert TK.launches["chol_solve_mat"] == n + 1
+    _close(X_k, X_p, 2e-4, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["hammer-v0", "door-v0", "pen-v0",
+                                  "relocate-v0"])
+def test_cuda_fk(cuda, task):
+    """K1 on the task's tree, with the task's per-env fields from its
+    reset (hammer's with the mass variation, so body_mass is per env
+    too), against the plain version on the CPU: 2e-5 * max(1, |x|)."""
+    from mj_envs_torch import envs
+    from mj_envs_torch.envs.base import _apply_var
+    from mj_envs_torch.parallel.vector import VectorEnv
+    from mj_envs_torch.physics import kinematics as K
+    env = envs.make(task, device=cuda,
+                    variation_type="mass" if task == "hammer-v0" else None)
+    B = 64
+    st = VectorEnv(env, B).reset(seed=1)
+    m = _apply_var(env.model, st.var)
+    rng = np.random.default_rng(16)
+    qpos = env.model.qpos0 + 0.3 * torch.as_tensor(
+        rng.standard_normal((B, env.nq)), dtype=torch.float32, device=cuda)
+    n = TK.launches["fk"]
+    k = K.kinematics(m, qpos)
+    torch.cuda.synchronize()
+    assert TK.launches["fk"] == n + 1
+    p = K.kinematics_plain(m.to("cpu"), qpos.cpu())
+    for f in K.Kin._fields:
+        a, b = getattr(k, f).cpu(), getattr(p, f)
+        assert a.shape == b.shape, f
+        scale = max(1.0, float(b.abs().max()))
+        assert float((a - b).abs().max()) <= 2e-5 * scale, f

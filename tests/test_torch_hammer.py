@@ -39,18 +39,26 @@ def to_port(st) -> EnvState:
         **{f: np.asarray(getattr(st, f)) for f in EnvState.LEAVES})
 
 
-@pytest.fixture(scope="module")
-def envs_pair():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)   # six xdist workers share the CPU
-    jenv = jenvs.make("hammer-v0")
-    jv = JVectorEnv(jenv, N, chunk_size=CHUNK)
-    tenv = tenvs.make("hammer-v0", device="cpu")
-    tv = VectorEnv(tenv, N, chunk_size=CHUNK)
-    tv.reset(seed=0)           # seeds the port's reset generator
-    yield dict(jenv=jenv, jst0=jax.jit(jv.reset)(jax.random.PRNGKey(0)),
-               jstep=jax.jit(jv.step), tenv=tenv, tv=tv)
-    torch.set_num_threads(n_threads)
+def task_pair(task):
+    """A module-scoped fixture: the JAX and port envs of `task` with
+    their VectorEnvs, the JAX reset states and the jitted JAX step.  The
+    other task files (`test_torch_door.py`, ...) build theirs with it."""
+    @pytest.fixture(scope="module")
+    def envs_pair():
+        n_threads = torch.get_num_threads()
+        torch.set_num_threads(1)   # six xdist workers share the CPU
+        jenv = jenvs.make(task)
+        jv = JVectorEnv(jenv, N, chunk_size=CHUNK)
+        tenv = tenvs.make(task, device="cpu")
+        tv = VectorEnv(tenv, N, chunk_size=CHUNK)
+        tv.reset(seed=0)           # seeds the port's reset generator
+        yield dict(jenv=jenv, jst0=jax.jit(jv.reset)(jax.random.PRNGKey(0)),
+                   jstep=jax.jit(jv.step), tenv=tenv, tv=tv)
+        torch.set_num_threads(n_threads)
+    return envs_pair
+
+
+envs_pair = task_pair("hammer-v0")
 
 
 def compare(st_t, st_j, fields=("obs", "reward", "final_obs"), rows=None):
@@ -68,8 +76,9 @@ def compare(st_t, st_j, fields=("obs", "reward", "final_obs"), rows=None):
                                       np.asarray(getattr(st_j, f)), f)
 
 
-def test_auto_reset_steps_match_jax(envs_pair):
-    p = envs_pair
+def check_auto_reset_steps(p):
+    """STEPS auto-reset steps from the JAX reset states, the same numpy
+    actions on both sides, compared after every step; no episode ends."""
     st_j = p["jst0"]
     st_t = to_port(st_j)
     compare(st_t, st_j)
@@ -82,6 +91,10 @@ def test_auto_reset_steps_match_jax(envs_pair):
     assert st_t.obs.shape == (N, p["tenv"].OBS_DIM)
     assert not st_t.done.any()
     np.testing.assert_array_equal(st_t.step_count.numpy(), STEPS)
+
+
+def test_auto_reset_steps_match_jax(envs_pair):
+    check_auto_reset_steps(envs_pair)
 
 
 def test_truncation_at_episode_cap(envs_pair):

@@ -146,6 +146,80 @@ def test_linesearch_cost_matches_pallas_interpret(interpret):
 
 
 # ---------------------------------------------------------------------------
+# Linesearch, alpha only (K7 linesearch)
+# ---------------------------------------------------------------------------
+
+def test_linesearch_matches_vmapped_ref():
+    args = TK.random_linesearch_problem(np.random.default_rng(14), 8, 296)
+    a_j = jax.vmap(lambda *xs: KR._linesearch_ref(*xs, 12, 16))(*args)
+    a_t = TK.linesearch(*_t(*args), 12, 16)
+    np.testing.assert_allclose(_np(a_t), _np(a_j), rtol=1e-5, atol=1e-6)
+    # The fused form's alpha is the same search.
+    a_c, _ = TK.linesearch_cost(*_t(*args), 12, 16)
+    assert torch.equal(a_t, a_c)
+
+
+def test_linesearch_matches_pallas_interpret(interpret):
+    args = TK.random_linesearch_problem(np.random.default_rng(15), 5, 16)
+    a_p = KR._linesearch_pallas(*[jnp.asarray(x) for x in args], 12, 16)
+    a_t = TK.linesearch(*_t(*args), 12, 16)
+    np.testing.assert_allclose(_np(a_t), _np(a_p), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Factor and solve over R right-hand sides (K8 chol_solve_mat)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,nv,R", [(3, 6, 5), (4, 33, 129)])
+def test_chol_solve_mat_matches_pallas_interpret(interpret, B, nv, R):
+    """The port's chol_solve_mat against the TPU kernel itself
+    (_chol_solve_mat_pallas in interpret mode), at a toy shape and at
+    hammer's noslip shape (nv = 33, R = 129)."""
+    H, _, G = TK.random_spd_problem(np.random.default_rng(16), B, nv, R)
+    X_p = KR._chol_solve_mat_pallas(jnp.asarray(H), jnp.asarray(G))
+    X_t = TK.chol_solve_mat(*_t(H, G))
+    np.testing.assert_allclose(_np(X_t), _np(X_p), rtol=2e-4, atol=2e-5)
+
+
+def test_chol_solve_mat_matches_vmapped_front_end():
+    H, _, G = TK.random_spd_problem(np.random.default_rng(17), 8, 33, 129)
+    X_j = jax.vmap(KR.chol_solve_mat)(H, G)
+    X_t = TK.chol_solve_mat(*_t(H, G))
+    np.testing.assert_allclose(_np(X_t), _np(X_j), rtol=2e-4, atol=2e-5)
+
+
+def test_noslip_without_factor_matches_factored():
+    """`solver.noslip(M_fac=None)` factors M itself (chol_solve_mat);
+    on the same rows it gives what the reused factor gives."""
+    from mj_envs_torch import envs
+    from mj_envs_torch.envs.base import _apply_var
+    from mj_envs_torch.parallel.vector import VectorEnv, random_actions
+    from mj_envs_torch.physics import pipeline as P
+    from mj_envs_torch.physics import solver as S
+    env = envs.make("hammer-v0", device="cpu")
+    venv = VectorEnv(env, 4)
+    st = venv.reset(seed=5)
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(3):
+        st = venv.step(st, random_actions(gen, 4, env.nu, "cpu"))
+    m, d, s = _apply_var(env.model, st.var), st.data, env.spec
+    out = P.forward_core(m, d.qpos, d.qvel, d.ctrl, d.qacc_warmstart,
+                         d.qfrc_applied)
+    _, fac = TK.chol_solve_factor(out.M, out.qacc_smooth)
+    assert out.rows.active.any()
+    nfl, nc = int(np.sum(s.dof_hasfrictionloss)), P.ncmax(s)
+    res = S.newton_solve(out.M, out.qacc_smooth, out.rows, d.qacc_warmstart,
+                         iterations=s.iterations)
+    with_fac = S.noslip(out.M, out.rows, res, nfl, nc, s.noslip_iterations,
+                        M_fac=fac)
+    no_fac = S.noslip(out.M, out.rows, res, nfl, nc, s.noslip_iterations)
+    for f in ("qacc", "efc_force", "jar"):
+        np.testing.assert_allclose(_np(getattr(no_fac, f)),
+                                   _np(getattr(with_fac, f)),
+                                   rtol=1e-5, atol=1e-5, err_msg=f)
+
+
+# ---------------------------------------------------------------------------
 # Noslip (K6 noslip_sweep)
 # ---------------------------------------------------------------------------
 

@@ -203,6 +203,50 @@ def test_narrowphase_per_pair_type(world):
             close(con.dist[:, sl], d_j, f"dist {key}")
 
 
+def _random_rot(rng, n):
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], axis=-1).reshape(n, 3, 3)
+
+
+@pytest.mark.parametrize("name", ["plane_sphere", "sphere_sphere",
+                                  "sphere_capsule", "sphere_cylinder",
+                                  "sphere_box"])
+def test_sphere_pair_functions(name):
+    """The five sphere pair types (relocate runs plane_sphere,
+    sphere_capsule and sphere_box; the other two complete the table) on
+    seeded random geometry, sphere centres inside and outside geom2, at
+    the narrowphase tolerance in contact (1e-5)."""
+    key = next(k for k, (fn, _) in TC._FNS.items() if fn.__name__ == name)
+    rng = np.random.default_rng(list(TC._FNS).index(key))
+    n = 256
+    p1 = rng.uniform(-0.1, 0.1, (n, 3))
+    p2 = rng.uniform(-0.1, 0.1, (n, 3))
+    m1, m2 = _random_rot(rng, n), _random_rot(rng, n)
+    s1 = np.concatenate([rng.uniform(0.01, 0.06, (n, 1)),
+                         np.zeros((n, 2))], axis=1)
+    s2 = rng.uniform(0.02, 0.08, (n, 3))
+    if name == "plane_sphere":           # geom1 is the plane, geom2 the sphere
+        s1, s2 = s2, s1
+    args = [a.astype(np.float32) for a in (p1, m1, s1, p2, m2, s2)]
+    margin = np.zeros(n, np.float32)
+    jfn = getattr(JC.NP, name)
+    d_j, p_j, n_j = jax.jit(jax.vmap(jfn))(*args, margin)
+    d_t, p_t, n_t = getattr(TC.NP, name)(*(tt(a) for a in args), tt(margin))
+    assert d_t.shape == (n, TC._SLOTS[key]) == np.asarray(d_j).shape
+    assert TC._SLOTS == JC._SLOTS
+    inside = np.asarray(d_j)[:, 0] < 0
+    assert 0.1 < inside.mean() < 0.9, "need candidates in and out of contact"
+    close(d_t, d_j, f"{name} dist")
+    close(p_t, p_j, f"{name} pos")
+    close(n_t, n_j, f"{name} nrm")
+
+
 @pytest.mark.parametrize("ncmax", [32, 2])
 def test_compaction_and_clipping(world, ncmax):
     """Slot order, the ncmax cap and `contacts_clipped` against the JAX

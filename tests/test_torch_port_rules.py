@@ -84,8 +84,12 @@ def test_make_defaults_to_the_card():
 
 
 def test_unported_task_and_dtype_raise():
+    """An unknown id raises, listing the four tasks; float64 (the JAX
+    package's oracle-parity path, not ported) raises too."""
     from mj_envs_torch import envs
-    with pytest.raises(ValueError, match="door-v0"):
-        envs.make("door-v0", device="cpu")
+    with pytest.raises(ValueError) as err:
+        envs.make("cheetah-v0", device="cpu")
+    for name in ("hammer-v0", "door-v0", "pen-v0", "relocate-v0"):
+        assert name in str(err.value)
     with pytest.raises(NotImplementedError):
         envs.make("hammer-v0", device="cpu", dtype=torch.float64)
