@@ -10,7 +10,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
 3. every kernel against its plain PyTorch version on the card, at the
    main path's shapes (B = 512 envs; hammer nv = 33, nefc = 296, noslip
    R = 129; the FK kernel on each task's tree with its per-env model
-   fields): max error, kernel / plain / library times (CUDA events), and
+   fields; the Newton-step solve also at door's and pen's nv = 30 and
+   relocate's 36, and beside the block factor-and-solve at R = 1; the
+   noslip kernel also on the sweep problem of a real
+   hammer chunk after a reset and one step, with the sweeps its envs
+   ran): max error, kernel / plain / library times (CUDA events), and
    the card's bound for the same work;
 4. a small-input reference: 8 envs of each task stepped twice on the
    card and on the CPU (plain versions) from the same state and actions;
@@ -45,6 +49,7 @@ SM_HZ = 1.98e9     # the SM boost clock: cycles per second of a spin kernel
 
 B_CHUNK = 512      # envs per chunk on the main path
 NV = 33            # hammer-v0 dofs
+K4_NVS = (30, 33, 36)   # door and pen, hammer, relocate
 NEFC = 296         # solver rows: 33 friction + 71 limits + 32 x 6 facets
 R_NOSLIP = 129     # 33 dof friction rows + 3 x 32 facet pairs
 NOSLIP_ITERS = 20
@@ -119,9 +124,11 @@ def gpu_info():
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_kernels(TK, dev):
+def compare_kernels(TK, dev, real_noslip):
     """Phase 3: each kernel vs its plain version at the main path's
-    shapes; returns the JSON entries (launches filled in later)."""
+    shapes, and the noslip kernel on `real_noslip`, the sweep problem of
+    a real hammer chunk; returns the JSON entries (launches filled in
+    later)."""
     rng = np.random.default_rng(0)
     card = lambda xs: [torch.as_tensor(x).to(dev) for x in xs]
     H, g, G = card(TK.random_spd_problem(rng, B_CHUNK, NV, R_NOSLIP))
@@ -182,15 +189,43 @@ def compare_kernels(TK, dev):
            time_ms(lambda: torch.cholesky_solve(G, L), 20),
            mat + 2 * rhs, 2 * B_CHUNK * NV * NV * R_NOSLIP, 2e-4)
 
-    # K4: factor and solve, one right-hand side (Newton step, damping).
-    x_k = TK.chol_factor_solve_cuda(H, g)
+    # K4: factor and solve, one right-hand side (Newton step, damping),
+    # at each task's nv; the JSON entry is hammer's.  Its bytes: one
+    # triangle of the symmetric H, g and x.  Beside the plain version it
+    # is held bit for bit against K8 at R = 1, whose block factor and
+    # substitution are the arithmetic of the one-block-per-env K4 of
+    # earlier versions.
+    def k4(H, g):
+        nv = g.shape[-1]
+        x = TK.chol_factor_solve_cuda(H, g)
+        x8 = TK.chol_solve_mat_cuda(H, g[..., None].contiguous())[..., 0]
+        log(f"  chol_factor_solve nv={nv} vs the block factor-and-solve "
+            f"(chol_solve_mat, R = 1): max |diff| "
+            f"{(x.double() - x8.double()).abs().max().item():.3e}, bit for "
+            f"bit: {torch.equal(x, x8)}")
+        return ({"x": rel_err(x, TK.chol_solve_plain(H, g))},
+                time_ms(lambda: TK.chol_factor_solve_cuda(H, g), 50),
+                time_ms(lambda: TK.chol_solve_plain(H, g), 20),
+                time_ms(lambda: torch.linalg.solve(H, g), 20),
+                B_CHUNK * (nv * (nv + 1) // 2 + 2 * nv) * F32,
+                B_CHUNK * (nv ** 3 / 3 + 2 * nv * nv))
+
+    rng_nv = np.random.default_rng(4)
+    for nv in K4_NVS:
+        if nv == NV:
+            continue
+        Hn, gn, _ = card(TK.random_spd_problem(rng_nv, B_CHUNK, nv, 1))
+        errs, ms, plain_ms, lib_ms, nbytes, flops = k4(Hn, gn)
+        (rel, ab), = errs.values()
+        log(f"  chol_factor_solve nv={nv}: max_abs_err {ab:.3e} rel "
+            f"{rel:.3e} (tol 2e-4); kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound(nbytes, flops)[0] * 1e3:.2f} us")
+        check(rel <= 2e-4, f"chol_factor_solve nv={nv}: kernel disagrees "
+              f"with its plain version (rel {rel:.3e} > 2e-4)")
+    log(f"  chol_factor_solve nv={NV}:")
     record("chol_factor_solve", "mj_envs_tpu/physics/kernels.py:567",
-           "mj_envs_torch/csrc/chol.cu",
-           {"x": rel_err(x_k, TK.chol_solve_plain(H, g))},
-           time_ms(lambda: TK.chol_factor_solve_cuda(H, g), 50),
-           time_ms(lambda: TK.chol_solve_plain(H, g), 20),
-           time_ms(lambda: torch.linalg.solve(H, g), 20),
-           mat + 2 * vec, B_CHUNK * (NV ** 3 / 3 + 2 * NV * NV), 2e-4)
+           "mj_envs_torch/csrc/chol.cu", *k4(H, g), 2e-4)
 
     # K8: factor and solve over R = 129 right-hand sides (noslip without
     # a mass-matrix factor); the factor never leaves shared memory.
@@ -269,6 +304,30 @@ def compare_kernels(TK, dev):
            time_ms(lambda: TK.noslip_sweep_cuda(*ns, NOSLIP_ITERS, 0.0), 20),
            time_ms(lambda: TK.noslip_sweep_plain(*ns, NOSLIP_ITERS), 1, 1),
            None, ns_bytes, ns_flops, 1e-5)
+
+    # K6 on the main path's own problem: the sweep problem of a real
+    # 512-env hammer chunk; the bound counts the sweeps its envs ran.
+    real = [t.contiguous() for t in real_noslip[:7]]
+    B, R = real[5].shape
+    u_k = TK.noslip_sweep_cuda(*real, NOSLIP_ITERS, 0.0)
+    rel, ab = rel_err(u_k, TK.noslip_sweep_plain(*real, NOSLIP_ITERS))
+    sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
+    TK.noslip_sweep_cuda(*real, NOSLIP_ITERS, 1e-3, sweeps=sweeps)
+    rs = sweeps.float()
+    ms_tol = time_ms(lambda: TK.noslip_sweep_cuda(*real, NOSLIP_ITERS, 1e-3),
+                     20)
+    ms_0 = time_ms(lambda: TK.noslip_sweep_cuda(*real, NOSLIP_ITERS, 0.0), 20)
+    bms = bound(B * R * (R + 7) * F32,
+                rs.sum().item() * R * (2 * R + 6))[0]
+    log(f"  noslip_sweep on a real hammer chunk ({B} envs, R = {R}, reset "
+        f"+ 1 step): tol=0 vs plain max_abs_err {ab:.3e} rel {rel:.3e} "
+        f"(tol 1e-5); sweeps per env at tol=1e-3 min {int(rs.min())} mean "
+        f"{rs.mean().item():.2f} max {int(rs.max())} (synthetic problem: "
+        f"min {int(sw.min())} mean {sw.mean().item():.2f} max "
+        f"{int(sw.max())}); kernel tol=1e-3 {ms_tol:.4f} ms, tol=0 "
+        f"{ms_0:.4f} ms; bound at tol=1e-3 {bms * 1e3:.2f} us")
+    check(rel <= 1e-5, "noslip_sweep on a real chunk: kernel disagrees "
+          f"with its plain version (rel {rel:.3e} > 1e-5)")
     return entries
 
 
@@ -350,6 +409,19 @@ def compare_fk(envs, VectorEnv, apply_var, dev):
     return dict(name="fk", route="cuda", source="mj_envs_torch/csrc/fk.cu",
                 replaces="mj_envs_tpu/physics/fk_kernel.py:113", launches=0,
                 max_abs_err=worst, library_ms=None, **hammer)
+
+
+def hammer_chunk_noslip(envs, VectorEnv, random_actions, apply_var, dev):
+    """Phase 3: the noslip sweep problem of one 512-env hammer chunk,
+    reset and stepped once with seeded random actions."""
+    from mj_envs_torch.stage_profile import noslip_problem_of
+    env = envs.make("hammer-v0", device=dev)
+    venv = VectorEnv(env, B_CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    st = venv.step(venv.reset(seed=0),
+                   random_actions(gen, B_CHUNK, env.nu, dev))
+    return noslip_problem_of(apply_var(env.model, st.var), st.data,
+                             st.data.ctrl)
 
 
 def noslip_without_factor(TK, envs, apply_var, st, dev):
@@ -479,7 +551,8 @@ def main():
 
     log(f"[3] kernels vs plain versions at B = {B_CHUNK}:")
     entries = [compare_fk(envs, VectorEnv, _apply_var, dev)]
-    entries += compare_kernels(TK, dev)
+    entries += compare_kernels(TK, dev, hammer_chunk_noslip(
+        envs, VectorEnv, random_actions, _apply_var, dev))
 
     log("[4] small-input reference:")
     for task in TASKS:

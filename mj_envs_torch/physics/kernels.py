@@ -40,6 +40,7 @@ import torch
 KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
            "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
+CHOL_SOLVE_MAX_NV = 64   # chol.cu's kMaxSolveNv: two columns per lane
 
 
 def reset_launches() -> None:
@@ -119,9 +120,13 @@ def chol_solve_fac_cuda(fac: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 
 
 def chol_factor_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K4: x (B, nv) = H^-1 g, factor kept in shared memory."""
+    """K4: x (B, nv) = H^-1 g, one warp per env, the factor kept in
+    shared memory; nv <= CHOL_SOLVE_MAX_NV."""
     from ._build import load
     B, nv = g.shape
+    if nv > CHOL_SOLVE_MAX_NV:
+        raise ValueError(f"the chol_factor_solve kernel takes nv <= "
+                         f"{CHOL_SOLVE_MAX_NV}; got {nv}")
     _check("H", H, (B, nv, nv))
     _check("g", g, (B, nv))
     x = torch.empty_like(g)

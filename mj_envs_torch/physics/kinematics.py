@@ -133,7 +133,8 @@ def kinematics_plain(m: Model, qpos: torch.Tensor) -> Kin:
 # The FK kernel (csrc/fk.cu)
 # ---------------------------------------------------------------------------
 
-FK_MAX_BODY = 64    # fk.cu's kMaxBody: per-thread body arrays
+FK_WARPS = 4                 # fk.cu's kWarps: envs per block
+FK_MAX_SMEM = 227 * 1024     # fk.cu's kMaxSmem: shared memory of a block
 
 # Per ModelSpec, per device: (tree table, body_rootid as a long tensor).
 _TABLES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -151,12 +152,32 @@ def fk_field_shapes(s) -> dict:
                 site_quat=(ns, 4), body_mass=(nb,), body_inertia=(nb, 3))
 
 
+def fk_smem_bytes(s, nlevel: int) -> int:
+    """Shared memory of one FK block, as fk.cu's launch computes it: the
+    tree table and FK_WARPS envs' slabs (qpos, the model fields, the
+    body and joint poses, the output stage)."""
+    nb, nj, ng, ns = s.nbody, s.njnt, s.ngeom, s.nsite
+    ntab = 5 * nb + 1 + 4 * nj + ng + ns + nlevel + 1
+    fields = 18 * nb + 6 * nj + 7 * ng + 7 * ns
+    stage = max(14 * nb, 12 * ng, 12 * ns, 6 * nj)
+    slab = s.nq + fields + 13 * nb + 6 * nj + stage
+    return 4 * (ntab + FK_WARPS * slab)
+
+
 def fk_table(s) -> np.ndarray:
     """The static body tree as fk.cu reads it (int32; layout in the
-    source).  Raises for a model the kernel does not take."""
-    if s.nbody > FK_MAX_BODY:
-        raise ValueError(f"the FK kernel takes at most {FK_MAX_BODY} "
-                         f"bodies; this model has {s.nbody}")
+    source): the ids it walks, each body's subtree size, and the bodies
+    in depth order with the offset of each level.  Raises for a model the
+    kernel does not take."""
+    parent = np.asarray(s.body_parentid, dtype=np.int64)
+    depth = np.zeros(s.nbody, dtype=np.int64)
+    for b in range(1, s.nbody):
+        depth[b] = depth[parent[b]] + 1
+    smem = fk_smem_bytes(s, int(depth.max()) + 1)
+    if smem > FK_MAX_SMEM:
+        raise ValueError(f"the FK kernel holds {FK_WARPS} envs per block in "
+                         f"shared memory, at most {FK_MAX_SMEM} bytes; this "
+                         f"model needs {smem}")
     jt = np.asarray(s.jnt_type)
     if s.nv != s.njnt or s.nq != s.njnt or not np.all(
             (jt == JNT_HINGE) | (jt == JNT_SLIDE)):
@@ -165,9 +186,18 @@ def fk_table(s) -> np.ndarray:
     jb = np.asarray(s.jnt_bodyid, dtype=np.int64)
     order = np.argsort(jb, kind="stable")     # a body's joints in j order
     adr = np.concatenate([[0], np.cumsum(np.bincount(jb, minlength=s.nbody))])
+    by_depth = np.argsort(depth, kind="stable")
+    level_adr = np.concatenate([[0], np.cumsum(np.bincount(depth))])
+    # The kernel sums body b's subtree over the id range [b, b + size).
+    mask = np.asarray(s.subtree_mask, dtype=bool)
+    size = mask.sum(1)
+    if any(not mask[b, b:b + size[b]].all() for b in range(s.nbody)):
+        raise ValueError("the FK kernel takes bodies in depth-first order "
+                         "(each subtree a contiguous range of ids)")
     return np.concatenate([
-        s.body_parentid, adr, order, jt, s.jnt_qposadr, jb, s.geom_bodyid,
-        s.site_bodyid, s.body_rootid]).astype(np.int32)
+        parent, adr, order, jt, s.jnt_qposadr, jb, s.geom_bodyid,
+        s.site_bodyid, s.body_rootid, size, by_depth,
+        level_adr]).astype(np.int32)
 
 
 def _tables(s, device):

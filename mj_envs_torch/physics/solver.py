@@ -120,15 +120,29 @@ def newton_solve(M: torch.Tensor, qacc_smooth: torch.Tensor, rows: Rows,
     return SolveResult(qacc=qacc, efc_force=f, jar=jar)
 
 
-def noslip(M: torch.Tensor, rows: Rows, res: SolveResult, n_fric_dof: int,
-           ncmax: int, iterations: int, M_fac: torch.Tensor | None = None,
-           tol: float = NOSLIP_TOL) -> SolveResult:
-    """Noslip post-pass: Gauss-Seidel over the friction rows only, without
-    regularization — dof friction-loss rows box-clamped to
-    +-frictionloss, and per contact facet pair the difference updated
-    with the sum (the normal force) held fixed.  X = M^-1 D^T comes from
-    the mass-matrix factor `M_fac` of `kernels.chol_solve_factor` or,
-    without one, from factoring M here (`kernels.chol_solve_mat`)."""
+class NoslipProblem(NamedTuple):
+    """The sweep problem of `noslip` (the arguments of
+    `kernels.noslip_sweep` before `iterations`) and what maps its
+    solution back: X = M^-1 D^T and each contact pair's force sum."""
+    A: torch.Tensor       # (B, R, R) = D M^-1 D^T
+    a_safe: torch.Tensor  # (B, R)
+    lo: torch.Tensor      # (B, R)
+    hi: torch.Tensor      # (B, R)
+    gate: torch.Tensor    # (B, R)
+    r0: torch.Tensor      # (B, R)
+    u0: torch.Tensor      # (B, R)
+    X: torch.Tensor       # (B, nv, R)
+    ssum: torch.Tensor    # (B, ncmax * 3)
+
+
+def noslip_problem(M: torch.Tensor, rows: Rows, res: SolveResult,
+                   n_fric_dof: int, ncmax: int,
+                   M_fac: torch.Tensor | None = None) -> NoslipProblem:
+    """Assemble `noslip`'s Gauss-Seidel problem over the friction rows:
+    the dof friction-loss rows and, per contact facet pair, the
+    difference of the pair.  X = M^-1 D^T comes from the mass-matrix
+    factor `M_fac` of `kernels.chol_solve_factor` or, without one, from
+    factoring M here (`kernels.chol_solve_mat`)."""
     B, nefc = rows.aref.shape
     nv = M.shape[-1]
     dtype = M.dtype
@@ -166,13 +180,27 @@ def noslip(M: torch.Tensor, rows: Rows, res: SolveResult, n_fric_dof: int,
     A = torch.matmul(D_all, X)                                     # (B, R, R)
     gate = (live & (a_diag > 1e-12)).to(dtype)
     r0 = torch.matmul(D_all, res.qacc[..., None])[..., 0] - b_all
-    u = kernels.noslip_sweep(A, a_safe, lo, hi, gate, r0, u0, iterations, tol)
-    qacc = res.qacc + torch.matmul(X, (u - u0)[..., None])[..., 0]
+    return NoslipProblem(A=A, a_safe=a_safe, lo=lo, hi=hi, gate=gate, r0=r0,
+                         u0=u0, X=X, ssum=ssum)
+
+
+def noslip(M: torch.Tensor, rows: Rows, res: SolveResult, n_fric_dof: int,
+           ncmax: int, iterations: int, M_fac: torch.Tensor | None = None,
+           tol: float = NOSLIP_TOL) -> SolveResult:
+    """Noslip post-pass: Gauss-Seidel over the friction rows only, without
+    regularization — dof friction-loss rows box-clamped to
+    +-frictionloss, and per contact facet pair the difference updated
+    with the sum (the normal force) held fixed (`noslip_problem`)."""
+    B, nefc = rows.aref.shape
+    con_base = nefc - ncmax * 6
+    pr = noslip_problem(M, rows, res, n_fric_dof, ncmax, M_fac)
+    u = kernels.noslip_sweep(*pr[:7], iterations, tol)
+    qacc = res.qacc + torch.matmul(pr.X, (u - pr.u0)[..., None])[..., 0]
 
     f_dof = u[:, :n_fric_dof]
     ud = u[:, n_fric_dof:]
-    fp = 0.5 * (ssum + ud)
-    fm = 0.5 * (ssum - ud)
+    fp = 0.5 * (pr.ssum + ud)
+    fm = 0.5 * (pr.ssum - ud)
     inter = torch.stack([fp, fm], dim=-1).reshape(B, ncmax * 6)
     efc = torch.cat([f_dof, res.efc_force[:, n_fric_dof:con_base], inter],
                     dim=1)

@@ -45,9 +45,10 @@ from .physics import solver as S
 from .physics.collision import driver as C
 
 
-def substep_stages(m, d, ctrl, tick):
-    """One `pipeline.step`, stage by stage, as `forward_core` runs it;
-    `tick(name)` closes each stage."""
+def solve_stages(m, d, ctrl, tick):
+    """`forward_core`'s stages up to the Newton solve, as it runs them;
+    `tick(name)` closes each stage.  Returns (kin, act, M, M_fac, cc,
+    rows, solve) for the stages after it."""
     s = m.spec
     kin = K.kinematics(m, d.qpos)
     tick("kinematics")
@@ -59,16 +60,23 @@ def substep_stages(m, d, ctrl, tick):
     tick("smooth dynamics")
     qacc_smooth, M_fac = kernels.chol_solve_factor(M, frc)
     tick("chol_solve_factor")
-    nc = P.ncmax(s)
-    _, cc = C.collide(m, kin, nc)
+    _, cc = C.collide(m, kin, P.ncmax(s))
     tick("collide")
     rows = CN.make_rows(m, kin, d.qpos, d.qvel, cc)
     tick("make_rows")
     solve = S.newton_solve(M, qacc_smooth, rows, d.qacc_warmstart,
                            iterations=s.iterations)
     tick("newton_solve")
+    return kin, act, M, M_fac, cc, rows, solve
+
+
+def substep_stages(m, d, ctrl, tick):
+    """One `pipeline.step`, stage by stage, as `forward_core` runs it;
+    `tick(name)` closes each stage."""
+    s = m.spec
+    kin, act, M, M_fac, cc, rows, solve = solve_stages(m, d, ctrl, tick)
     nfl = int(np.sum(s.dof_hasfrictionloss))
-    solve = S.noslip(M, rows, solve, nfl, nc, s.noslip_iterations,
+    solve = S.noslip(M, rows, solve, nfl, P.ncmax(s), s.noslip_iterations,
                      M_fac=M_fac)
     tick("noslip")
     P._sensors(m, kin, d.qpos, act, cc, solve)
@@ -79,21 +87,21 @@ def substep_stages(m, d, ctrl, tick):
     tick("euler")
 
 
-def noslip_exit(m, d, ctrl):
-    """Sweeps per env at tol = 1e-3 on a real substep's noslip problem,
-    and max |u(tol) - u(0)| / max(max hi, 1) over the envs."""
-    captured = []
-    sweep = kernels.noslip_sweep
+def noslip_problem_of(m, d, ctrl) -> S.NoslipProblem:
+    """The noslip sweep problem of one substep from state `d`: the stages
+    up to the Newton solve, then `solver.noslip_problem` with the mass
+    matrix's factor, as `solver.noslip` builds it."""
+    s = m.spec
+    _, _, M, M_fac, _, rows, solve = solve_stages(m, d, ctrl, lambda _: None)
+    return S.noslip_problem(M, rows, solve,
+                            int(np.sum(s.dof_hasfrictionloss)), P.ncmax(s),
+                            M_fac)
 
-    def capture(*args, **kw):
-        captured.append(args[:7])
-        return sweep(*args, **kw)
 
-    kernels.noslip_sweep = capture
-    P.step(m, d, ctrl)
-    kernels.noslip_sweep = sweep
-    prob = [t.contiguous() for t in captured[0]]
-    iters = m.spec.noslip_iterations
+def noslip_exit(prob: S.NoslipProblem, iters: int):
+    """Sweeps per env at tol = 1e-3 on a noslip problem, and
+    max |u(tol) - u(0)| / max(max hi, 1) over the envs."""
+    prob = [t.contiguous() for t in prob[:7]]
     sweeps = torch.empty(prob[0].shape[0], dtype=torch.int32,
                          device=prob[0].device)
     u_tol = kernels.noslip_sweep_cuda(*prob, iters, S.NOSLIP_TOL,
@@ -171,7 +179,8 @@ def main():
         "top_host_ops": [(e.key, e.count, e.self_cpu_time_total / 1e3)
                          for e in top],
     }
-    out["noslip_tol_exit"] = noslip_exit(m, st.data, ctrl)
+    out["noslip_tol_exit"] = noslip_exit(noslip_problem_of(m, st.data, ctrl),
+                                         m.spec.noslip_iterations)
     for k, v in stage_ms.items():
         print(f"  {k:18s} {v:9.3f} ms")
     print(json.dumps(out))

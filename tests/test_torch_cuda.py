@@ -72,8 +72,12 @@ def test_cuda_chol_solve_fac(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_chol_factor_solve(cuda):
-    H, g, _ = TK.random_spd_problem(np.random.default_rng(11), 64, 33, 1)
+@pytest.mark.parametrize("nv", [30, 33, 36, 64])
+def test_cuda_chol_factor_solve(cuda, nv):
+    """K4 at the tasks' nv (door and pen 30, hammer 33, relocate 36) and
+    at its limit of 64 (two columns per lane); env 3 is not positive
+    definite and must come out NaN."""
+    H, g, _ = TK.random_spd_problem(np.random.default_rng(11), 64, nv, 1)
     H[3] = -H[3]
     n = TK.launches["chol_factor_solve"]
     x_k, x_p = _both(TK.chol_solve, (H, g), cuda)
@@ -81,6 +85,15 @@ def test_cuda_chol_factor_solve(cuda):
     assert torch.isnan(x_k[3]).any()
     _close(x_k[torch.arange(64) != 3], x_p[torch.arange(64) != 3],
            2e-4, 2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_chol_factor_solve_refuses_nv_65(cuda):
+    H, g, _ = TK.random_spd_problem(np.random.default_rng(11), 4, 65, 1)
+    n = TK.launches["chol_factor_solve"]
+    with pytest.raises(ValueError, match=str(TK.CHOL_SOLVE_MAX_NV)):
+        TK.chol_solve(*(torch.as_tensor(x).to(cuda) for x in (H, g)))
+    assert TK.launches["chol_factor_solve"] == n
 
 
 @pytest.mark.cuda

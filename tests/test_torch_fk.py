@@ -114,12 +114,13 @@ def test_fk_table_encodes_the_tree(task):
     nb, nj, ng, ns = s.nbody, s.njnt, s.ngeom, s.nsite
     tab = TK.fk_table(s)
     assert tab.dtype == np.int32
-    assert tab.size == 2 * nb + 1 + 4 * nj + ng + ns + nb
+    nlevel = tab.size - (5 * nb + 1 + 4 * nj + ng + ns) - 1
+    assert nlevel >= 1
     parent, tab = tab[:nb], tab[nb:]
     adr, tab = tab[:nb + 1], tab[nb + 1:]
     order, jtype, qadr, jbody, tab = np.split(tab, [nj, 2 * nj, 3 * nj,
                                                     4 * nj])
-    gbody, sbody, root = tab[:ng], tab[ng:ng + ns], tab[ng + ns:]
+    gbody, sbody, root = tab[:ng], tab[ng:ng + ns], tab[ng + ns:ng + ns + nb]
     np.testing.assert_array_equal(parent, s.body_parentid)
     assert np.all(parent[1:] < np.arange(1, nb))
     for b in range(nb):
@@ -135,10 +136,41 @@ def test_fk_table_encodes_the_tree(task):
     np.testing.assert_array_equal(root, s.body_rootid)
 
 
+@pytest.mark.parametrize("task", sorted(PER_ENV))
+def test_fk_table_levels_and_subtrees(task):
+    """The table's tail, which the kernel's level-parallel walk and its
+    subtree sums read: subtree sizes, the bodies in depth order and the
+    offset of each level.  Every body's parent lies in an earlier level,
+    each level in id order, and body b's subtree is the id range
+    [b, b + size_b) of `spec.subtree_mask`."""
+    s = tenvs.make(task, device="cpu").spec
+    nb = s.nbody
+    tab = TK.fk_table(s)
+    head = 5 * nb + 1 + 4 * s.njnt + s.ngeom + s.nsite   # to by_depth's end
+    size, by_depth = tab[head - 2 * nb:head - nb], tab[head - nb:head]
+    level_adr = tab[head:]
+    assert level_adr[0] == 0 and level_adr[-1] == nb
+    assert np.all(np.diff(level_adr) > 0)
+    assert sorted(by_depth) == list(range(nb))
+    level = np.empty(nb, dtype=np.int64)
+    for L in range(len(level_adr) - 1):
+        bodies = by_depth[level_adr[L]:level_adr[L + 1]]
+        assert np.all(np.diff(bodies) > 0)
+        level[bodies] = L
+    assert by_depth[0] == 0 and level_adr[1] == 1    # the world alone
+    parent = np.asarray(s.body_parentid)
+    assert np.all(level[parent[1:]] == level[1:] - 1)
+    mask = np.asarray(s.subtree_mask, dtype=bool)
+    for b in range(nb):
+        want = np.zeros(nb, dtype=bool)
+        want[b:b + size[b]] = True
+        np.testing.assert_array_equal(mask[b], want)
+
+
 def test_fk_dispatch_and_limits():
     """A CPU qpos takes the plain version (no launch counted); a qpos on
-    another non-CUDA device raises; a model beyond the kernel's body
-    limit or with another joint type is refused by name."""
+    another non-CUDA device raises; a model beyond the shared memory of
+    the kernel's block or with another joint type is refused by name."""
     from mj_envs_torch.physics import kernels
     env = tenvs.make("door-v0", device="cpu")
     kernels.reset_launches()
@@ -147,9 +179,18 @@ def test_fk_dispatch_and_limits():
     with pytest.raises(TypeError):
         TK.kinematics(env.model, torch.empty(2, env.nq, device="meta"))
     s = env.spec
-    big = type(s)(**{**vars(s), "nbody": TK.FK_MAX_BODY + 1})
-    with pytest.raises(ValueError, match=str(TK.FK_MAX_BODY)):
+    assert TK.fk_smem_bytes(s, s.nbody) < TK.FK_MAX_SMEM // 4
+    nb = 400                  # a chain of 400 bodies, 400 levels
+    big = type(s)(**{**vars(s), "nbody": nb,
+                     "body_parentid": np.arange(-1, nb - 1)})
+    assert TK.fk_smem_bytes(big, nb) > TK.FK_MAX_SMEM
+    with pytest.raises(ValueError, match=str(TK.FK_MAX_SMEM)):
         TK.fk_table(big)
     ball = type(s)(**{**vars(s), "jnt_type": np.full(s.njnt, 1)})
     with pytest.raises(ValueError, match="hinge and slide"):
         TK.fk_table(ball)
+    gap = np.eye(s.nbody, dtype=bool)
+    gap[0] = True
+    gap[1, 3] = True          # body 1's subtree {1, 3}: not a range
+    with pytest.raises(ValueError, match="depth-first"):
+        TK.fk_table(type(s)(**{**vars(s), "subtree_mask": gap}))

@@ -259,6 +259,18 @@ def test_dispatch_cpu_plain_other_devices_raise():
         TK.chol_solve(Ht, torch.empty(2, 5, device="meta"))
 
 
+def test_chol_factor_solve_kernel_refuses_nv_above_its_limit():
+    """K4 runs one warp per env with two columns per lane: its wrapper
+    raises for nv above 64, naming the limit, before any launch; the
+    front end's plain version on the CPU has no such limit."""
+    H, g, _ = TK.random_spd_problem(np.random.default_rng(7), 2, 65, 1)
+    Ht, gt = _t(H, g)
+    with pytest.raises(ValueError, match=str(TK.CHOL_SOLVE_MAX_NV)):
+        TK.chol_factor_solve_cuda(Ht, gt)
+    assert TK.CHOL_SOLVE_MAX_NV == 64
+    assert torch.isfinite(TK.chol_solve(Ht, gt)).all()
+
+
 def test_generators_match_jax_distributions():
     """The numpy generators keep the JAX generators' value ranges."""
     rng = np.random.default_rng(8)
