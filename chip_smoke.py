@@ -12,6 +12,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
    R = 129; the FK kernel on each task's tree with its per-env model
    fields; the Newton-step solve also at door's and pen's nv = 30 and
    relocate's 36, and beside the block factor-and-solve at R = 1; the
+   substitution from K2's factor beside the block factor-and-solve at
+   R = 129 and R = 1; the fused linesearch's alpha beside the sequential
+   search's, with the Newton steps its envs ran; the
    noslip kernel also on the sweep problem of a real
    hammer chunk after a reset and one step, with the sweeps its envs
    ran): max error, kernel / plain / library times (CUDA events), and
@@ -158,6 +161,9 @@ def compare_kernels(TK, dev, real_noslip):
             library_ms=lib_ms))
 
     mat = B_CHUNK * NV * NV * F32
+    # One triangle: K3 reads only L's of the factor (the rest is zeros by
+    # layout), K8 only one of the symmetric H.
+    tri = B_CHUNK * (NV * (NV + 1) // 2) * F32
     vec = B_CHUNK * NV * F32
     rhs = B_CHUNK * NV * R_NOSLIP * F32
 
@@ -173,21 +179,34 @@ def compare_kernels(TK, dev, real_noslip):
            2 * mat, B_CHUNK * NV ** 3 / 3, 2e-4)
 
     # K3: substitution from the factor, R = 129 (noslip's X = M^-1 D^T)
-    # and R = 1 (qacc_smooth).
+    # and R = 1 (qacc_smooth, a warp per env).  Beside the plain version,
+    # K2's factor then K3 is held bit for bit against K8, whose block
+    # substitution runs K3's order of operations.
     L = fac_p.transpose(-1, -2).contiguous()
     X_k = TK.chol_solve_fac_cuda(fac_p, G)
     x1_k = TK.chol_solve_fac_cuda(fac_p, g1)
     errs = {"X (R=129)": rel_err(X_k, TK.chol_solve_fac_plain(fac_p, G)),
             "x (R=1)": rel_err(x1_k, TK.chol_solve_fac_plain(fac_p, g1))}
-    ms1 = time_ms(lambda: TK.chol_solve_fac_cuda(fac_p, g1), 50)
-    log(f"  chol_solve_fac R=1: kernel {ms1:.4f} ms, bound "
-        f"{bound(mat + 2 * vec, 2 * B_CHUNK * NV * NV)[0] * 1e3:.2f} us")
+    for R, Y in ((R_NOSLIP, G), (1, g1)):
+        X3 = TK.chol_solve_fac_cuda(fac_k, Y)
+        X8 = TK.chol_solve_mat_cuda(H, Y)
+        log(f"  chol_solve_fac R={R} on chol_factor's factor vs the block "
+            f"factor-and-solve (chol_solve_mat): max |diff| "
+            f"{(X3.double() - X8.double()).abs().max().item():.3e}, bit for "
+            f"bit: {torch.equal(X3, X8)}")
+    bms1, by1 = bound(tri + 2 * vec, 2 * B_CHUNK * NV * NV)
+    log(f"  chol_solve_fac R=1: kernel "
+        f"{time_ms(lambda: TK.chol_solve_fac_cuda(fac_p, g1), 50):.4f} ms, "
+        f"plain {time_ms(lambda: TK.chol_solve_fac_plain(fac_p, g1), 20):.4f}"
+        f" ms, library "
+        f"{time_ms(lambda: torch.cholesky_solve(g1, L), 20):.4f} ms "
+        f"(cholesky_solve), bound {bms1 * 1e3:.2f} us ({by1})")
     record("chol_solve_fac", "mj_envs_tpu/physics/kernels.py:854",
            "mj_envs_torch/csrc/chol.cu", errs,
            time_ms(lambda: TK.chol_solve_fac_cuda(fac_p, G), 50),
            time_ms(lambda: TK.chol_solve_fac_plain(fac_p, G), 20),
            time_ms(lambda: torch.cholesky_solve(G, L), 20),
-           mat + 2 * rhs, 2 * B_CHUNK * NV * NV * R_NOSLIP, 2e-4)
+           tri + 2 * rhs, 2 * B_CHUNK * NV * NV * R_NOSLIP, 2e-4)
 
     # K4: factor and solve, one right-hand side (Newton step, damping),
     # at each task's nv; the JSON entry is hammer's.  Its bytes: one
@@ -240,15 +259,24 @@ def compare_kernels(TK, dev, real_noslip):
            time_ms(lambda: TK.chol_solve_mat_cuda(H, G), 50),
            time_ms(lambda: TK.chol_solve_mat_plain(H, G), 20),
            time_ms(lib_solve_mat, 20),
-           mat + 2 * rhs,
+           tri + 2 * rhs,
            B_CHUNK * (NV ** 3 / 3 + 2 * NV * NV * R_NOSLIP), 2e-4)
 
     # K5: linesearch + row cost.  Operations per row: 8 for each phi'
     # and phi'' evaluation, 12 for the final cost; 12 bracket phi', 16
     # (phi', phi'') steps, one cost pass.
     ls = card(TK.random_linesearch_problem(rng, B_CHUNK, NEFC))
-    a_k, c_k = TK.linesearch_cost_cuda(*ls, 12, 16)
+    steps = torch.zeros(B_CHUNK, dtype=torch.int32, device=dev)
+    a_k, c_k = TK.linesearch_cost_cuda(*ls, 12, 16, steps=steps)
     a_p, c_p = TK.linesearch_cost_plain(*ls, 12, 16)
+    a_7 = TK.linesearch_cuda(*ls, 12, 16)
+    st = steps.float()
+    log(f"  linesearch_cost alpha vs linesearch's (the sequential search): "
+        f"max |diff| {(a_k.double() - a_7.double()).abs().max().item():.3e}"
+        f", bit for bit: {torch.equal(a_k, a_7)}; Newton steps run per env "
+        f"min {int(st.min())} mean {st.mean().item():.2f} max "
+        f"{int(st.max())}, {int((steps == 16).sum())} of {B_CHUNK} envs "
+        f"all 16")
     # Where phi' crosses zero at a kink, the safeguarded search ends in a
     # bisection bracket, and which side a float32 sum puts phi'(alpha) on
     # moves alpha within it.  So alpha is held at 2e-3 and the cost at
@@ -276,8 +304,7 @@ def compare_kernels(TK, dev, real_noslip):
     # alpha held at 2e-3 for the reason printed above for K5.
     record("linesearch", "mj_envs_tpu/physics/kernels.py:365",
            "mj_envs_torch/csrc/linesearch.cu",
-           {"alpha": rel_err(TK.linesearch_cuda(*ls, 12, 16),
-                             TK.linesearch_plain(*ls, 12, 16))},
+           {"alpha": rel_err(a_7, TK.linesearch_plain(*ls, 12, 16))},
            time_ms(lambda: TK.linesearch_cuda(*ls, 12, 16), 50),
            time_ms(lambda: TK.linesearch_plain(*ls, 12, 16), 5),
            None, ls_bytes - B_CHUNK * F32,

@@ -15,26 +15,57 @@
 // on a 4.4 KB matrix, the R = 129 substitution 2 nv^2 R ~ 281k flops on
 // 21 KB; at B = 512 both bounds are a few microseconds of HBM traffic
 // and far below the 67 TFLOP/s float32 peak.  The real limit is the
-// dependency chain: nv sequential pivot steps, each a block barrier.
+// dependency chain of nv pivot steps, and how many threads share it.
 //
-// Design of chol_factor, chol_solve_fac and chol_solve_mat: one block
-// per env; the matrix lives in shared memory for the whole factorization
-// (each element is read from device memory once and each output written
-// once).  The factor-and-solve kernels never write the factor to device
-// memory.  The factor is right-looking, as on the TPU: pivot inv_s =
-// rsqrt(akk), column k = row k * inv_s (the working matrix stays
-// symmetric), then a rank-1 trailing update spread over all threads.  A
-// non-positive pivot yields NaN/inf, never a clamp or a trap: the Newton
-// solver relies on that NaN to take its gradient fallback.  Substitution
+// Design of chol_factor and chol_solve_mat: one block per env; the
+// matrix lives in shared memory for the whole factorization (each
+// element is read from device memory once and each output written
+// once); chol_solve_mat never writes the factor to device memory.  The
+// factor is right-looking, as on the TPU: pivot inv_s = rsqrt(akk),
+// column k = row k * inv_s (the working matrix stays symmetric), then a
+// rank-1 trailing update spread over all threads.  A non-positive pivot
+// yields NaN/inf, never a clamp or a trap: the Newton solver relies on
+// that NaN to take its gradient fallback.  chol_solve_mat's substitution
 // runs column-oriented (forward, then back) with threads over (row,
-// right-hand side) pairs.  No TPU padding or batch-minor layout is
-// carried over.
+// right-hand side) pairs, two block barriers a step.  No TPU padding or
+// batch-minor layout is carried over.  chol_solve_mat is off the main
+// path and keeps this arithmetic on purpose: it is the block reference
+// that chol_factor_solve, and chol_factor then chol_solve_fac, equal bit
+// for bit (tests/test_torch_cuda.py, chip_smoke.py phase 3).
+//
+// chol_solve_fac (the substitution from a stored factor: noslip's
+// X = M^-1 D^T at R = 129, qacc_smooth at R = 1) has no block barrier in
+// its steps.  The R right-hand sides are independent problems, so from
+// R = 2 up each gets a thread, its nv values in registers: one block per
+// env and up to 256 right-hand sides (5 warps at R = 129, 2,560 warps at
+// B = 512), the factor read once into shared memory behind the block's
+// one barrier, then read by every thread at the same address (a
+// broadcast, 16 bytes at a time).  G and X move coalesced over r.  A
+// flat (env, column) grid would fill the ragged last warp (129 = 4 x 32
+// + 1) but split a warp's factor reads over two envs and lose the
+// broadcast; one block per env was chosen.  The register array is
+// indexed by loops unrolled over a bucket NV (36: nv <= 36; 64: nv <= 64),
+// nv placed at its end.  What bounds it: at R = 129 and B = 512 every
+// block is resident at once, so a phase of moving G and X (near the
+// byte bound) is followed by one of issuing ~nv^2 FMAs and 2 nv IEEE
+// divides a thread with ~5 warps per SM sub-partition; the two hardly
+// overlap.  Two right-hand sides a thread (half the warps) ran slower;
+// 4-byte factor reads in place of 16-byte ones ran the same.  R = 1 gets
+// a warp per env instead (a thread per column would leave one thread per
+// env): chol_factor_solve's substitution on the stored factor, y and x
+// in registers, y_k by shuffle, bound by its chain of 2 nv dependent
+// steps and the factor's one trip from memory.  Both keep
+// chol_subst_smem's order of operations (forward: y_k /= L_kk, then
+// y_j -= L_jk y_k for j > k, k ascending; back: x_k /= L_kk, then y_i -=
+// L_ik x_k for i < k, k descending) and its IEEE divides, so each element
+// sees chol_solve_mat's roundings.  nv above 64 returns
+// cudaErrorInvalidValue.
 //
 // chol_factor_solve (one right-hand side, the most launched kernel) runs
-// one warp per env instead, kSolveWarps envs per block, with no block
-// barrier.  Lane l owns columns l and l + 32 of the matrix (nv <= 64),
-// kept in shared memory column by column, each contiguous, so that a
-// lane reads four rows of a column in one 16-byte load.  The factor is
+// one warp per env, kSolveWarps envs per block, with no block barrier.
+// Lane l owns columns l and l + 32 of the matrix (nv <= 64), kept in
+// shared memory column by column, each contiguous, so that a lane reads
+// four rows of a column in one 16-byte load.  The factor is
 // left-looking: step k finishes column k of L^T at once, each lane
 // subtracting the earlier steps' products from its own entry in the
 // order the right-looking factor subtracts them, so the roundings, and
@@ -46,14 +77,26 @@
 // (shared memory, shuffle, rsqrt, warp sync) and the 2 nv steps of the
 // substitutions (shuffle, divide), with one warp per SM sub-partition
 // at B = 512 and nothing to hide their latency.
+//
+// nvcc -Xptxas -v (CUDA 12.8, sm_90a):
+//   chol_subst_cols_kernel<64>  98 registers, 32768 bytes smem
+//   chol_subst_cols_kernel<36>  64 registers, 10368 bytes smem
+//   chol_subst_warp_kernel      32 registers
+//   chol_factor_solve_kernel    47 registers
+//   chol_solve_mat_kernel       30 registers
+//   chol_factor_kernel          24 registers
+//   each: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSolveWarps = 4;   // envs per block of chol_factor_solve
+constexpr int kSolveWarps = 4;   // envs per block of the warp kernels
 constexpr int kMaxSolveNv = 64;  // two columns per lane
+constexpr int kMaxSubstNv = 64;  // chol_solve_fac's largest nv bucket
+constexpr int kSubstWarpMaxR = 1;       // up to here a warp per env
+constexpr int kSubstColThreads = 256;   // right-hand sides per block
 constexpr unsigned kFull = 0xffffffffu;
 
 // Column stride of chol_factor_solve's matrix: a multiple of 4 floats
@@ -130,20 +173,6 @@ __global__ void chol_factor_kernel(const float* __restrict__ H,
   for (int e = threadIdx.x; e < nv * nv; e += blockDim.x) fac[off + e] = Lt[e];
 }
 
-__global__ void chol_solve_fac_kernel(const float* __restrict__ fac,
-                                      const float* __restrict__ G,
-                                      float* __restrict__ X, int nv, int R) {
-  extern __shared__ float smem[];
-  float* Lt = smem;
-  float* Y = Lt + nv * nv;
-  const size_t offL = (size_t)blockIdx.x * nv * nv;
-  const size_t offY = (size_t)blockIdx.x * nv * R;
-  for (int e = threadIdx.x; e < nv * nv; e += blockDim.x) Lt[e] = fac[offL + e];
-  for (int e = threadIdx.x; e < nv * R; e += blockDim.x) Y[e] = G[offY + e];
-  chol_subst_smem(Lt, Y, nv, R);
-  for (int e = threadIdx.x; e < nv * R; e += blockDim.x) X[offY + e] = Y[e];
-}
-
 // Value v of the lane that owns column (or row) k: v0 for k < 32, v1
 // above; every lane of the warp calls it.
 __device__ __forceinline__ float from_owner(float v0, float v1, int k) {
@@ -152,6 +181,142 @@ __device__ __forceinline__ float from_owner(float v0, float v1, int k) {
 
 __device__ __forceinline__ float part(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+// chol_solve_fac, R >= kSubstWarpMaxR + 1: a thread per right-hand side,
+// its NV values in registers (NV, a multiple of 4, bounds nv).  The
+// env's factor sits in shared memory twice, by rows of L^T (Lr[k][j] =
+// Lt[k][j], the forward pass's row k) and by columns (Lc[k][i] = Lt[i][k],
+// the back pass's), both padded to NV x NV at the FRONT: real index
+// p = NV - nv + k, padded entries 0 with 1 on the diagonal.  Padded
+// steps are skipped, and a padded y only receives updates (in the back
+// pass), never gives one, so that the real entries see exactly the
+// operations of chol_subst_smem in its order, NaN and inf included.
+template <int NV>
+__global__ void __launch_bounds__(kSubstColThreads)
+chol_subst_cols_kernel(const float* __restrict__ fac,
+                       const float* __restrict__ G,
+                       float* __restrict__ X, int nv, int R) {
+  __shared__ float4 Lr4[NV * NV / 4], Lc4[NV * NV / 4];
+  float* Lr = reinterpret_cast<float*>(Lr4);
+  float* Lc = reinterpret_cast<float*>(Lc4);
+  const int env = blockIdx.x;
+  const int r = blockIdx.y * kSubstColThreads + threadIdx.x;
+  const bool live = r < R;
+  const int pad = NV - nv;
+  const float* f = fac + (size_t)env * nv * nv;
+  const float* g = G + (size_t)env * nv * R + r;
+
+  // This column's loads first, all in flight while the factor arrives.
+  float y[NV];
+#pragma unroll
+  for (int p = 0; p < NV; ++p)
+    y[p] = (live && p >= pad) ? g[(size_t)(p - pad) * R] : 0.0f;
+  for (int e = threadIdx.x; e < NV * NV; e += blockDim.x) {
+    const int a = e / NV, b = e % NV;
+    // Lr[a][b] = Lt[a][b] (coalesced read); Lc[a][b] = Lt[b][a].
+    Lr[e] = (a >= pad && b >= pad) ? f[(a - pad) * nv + (b - pad)]
+                                   : (a == b ? 1.0f : 0.0f);
+    Lc[e] = (a >= pad && b >= pad) ? f[(b - pad) * nv + (a - pad)]
+                                   : (a == b ? 1.0f : 0.0f);
+  }
+  __syncthreads();   // the only barrier
+  if (!live) return;
+
+  // Forward, L y = g: y_k /= L_kk, then y_j -= Lt[k][j] y_k for j > k.
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    if (k < pad) continue;   // block-uniform
+    y[k] = y[k] / Lr[k * NV + k];
+#pragma unroll
+    for (int c = (k + 1) / 4; c < NV / 4; ++c) {
+      const float4 l = Lr4[k * (NV / 4) + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (4 * c + u > k) y[4 * c + u] -= part(l, u) * y[k];
+    }
+  }
+  // Back, L^T x = y: x_k = y_k / L_kk, then y_i -= Lt[i][k] x_k, i < k.
+#pragma unroll
+  for (int k = NV - 1; k >= 0; --k) {
+    if (k < pad) break;      // block-uniform
+    y[k] = y[k] / Lr[k * NV + k];
+#pragma unroll
+    for (int c = 0; 4 * c < k; ++c) {
+      const float4 l = Lc4[k * (NV / 4) + c];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (4 * c + u < k) y[4 * c + u] -= part(l, u) * y[k];
+    }
+  }
+  float* x = X + (size_t)env * nv * R + r;
+#pragma unroll
+  for (int p = 0; p < NV; ++p)
+    if (p >= pad) x[(size_t)(p - pad) * R] = y[p];
+}
+
+// chol_solve_fac, R <= kSubstWarpMaxR (qacc_smooth's one right-hand
+// side): a warp per env, kSolveWarps envs per block, the substitution of
+// chol_factor_solve on the stored factor.  Lane l holds y_l and y_{l+32}
+// (nv <= 64).  The env's factor, nv^2 floats, arrives in shared memory
+// as the 16-byte-aligned span that holds it, by 16-byte cp.async (up to
+// 3 floats of the neighbours on either side come along; they lie in the
+// same 16-byte words as the factor's own): a few copies a lane in one
+// memory latency.  Rows keep stride nv, so the forward pass's row reads
+// (lane j: Lt[k][j]) are conflict-free and the back pass's column reads
+// (lane i: Lt[i][k]) are too at odd nv.  The pivot step's y_k reaches
+// the lanes by shuffle.
+__host__ __device__ inline int subst_span4(int nv) {   // float4s a warp
+  return (nv * nv + 6) / 4;
+}
+
+__global__ void __launch_bounds__(kSolveWarps * 32)
+chol_subst_warp_kernel(const float* __restrict__ fac,
+                       const float* __restrict__ g,
+                       float* __restrict__ x, int B, int nv) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int env = blockIdx.x * kSolveWarps + (threadIdx.x >> 5);
+  if (env >= B) return;   // warp-uniform
+  const size_t f = reinterpret_cast<size_t>(fac + (size_t)env * nv * nv);
+  const int shift = (int)(f & 15) / 4;   // floats before the factor
+  const float4* src = reinterpret_cast<const float4*>(f - (f & 15));
+  float4* dst = smem4 + (threadIdx.x >> 5) * subst_span4(nv);
+  for (int c = lane; c < (shift + nv * nv + 3) / 4; c += 32)
+    __pipeline_memcpy_async(dst + c, src + c, 16);
+  __pipeline_commit();
+  const float* Ls = reinterpret_cast<const float*>(dst) + shift;
+  const int j0 = lane, j1 = lane + 32;   // this lane's rows
+  const bool own0 = j0 < nv, own1 = j1 < nv;
+  float y0 = own0 ? g[(size_t)env * nv + j0] : 0.0f;
+  float y1 = own1 ? g[(size_t)env * nv + j1] : 0.0f;
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  // Forward, L y = g: y_k /= L_kk, then y_j -= Lt[k][j] y_k (j > k).
+#pragma unroll 4
+  for (int k = 0; k < nv; ++k) {
+    const float yk = from_owner(y0, y1, k) / Ls[k * nv + k];
+    if (lane == (k & 31)) {
+      if (k < 32) y0 = yk;
+      else y1 = yk;
+    }
+    if (own0 && j0 > k) y0 -= Ls[k * nv + j0] * yk;
+    if (own1 && j1 > k) y1 -= Ls[k * nv + j1] * yk;
+  }
+  // Back, L^T x = y: x_k = y_k / L_kk, then y_i -= Lt[i][k] x_k (i < k).
+#pragma unroll 4
+  for (int k = nv - 1; k >= 0; --k) {
+    const float xk = from_owner(y0, y1, k) / Ls[k * nv + k];
+    if (lane == (k & 31)) {
+      if (k < 32) y0 = xk;
+      else y1 = xk;
+    }
+    if (j0 < k) y0 -= Ls[j0 * nv + k] * xk;
+    if (j1 < k) y1 -= Ls[j1 * nv + k] * xk;
+  }
+  if (own0) x[(size_t)env * nv + j0] = y0;
+  if (own1) x[(size_t)env * nv + j1] = y1;
 }
 
 // A[k][j] less the steps p < k of the right-looking factor, in their
@@ -299,14 +464,27 @@ extern "C" int chol_factor(const float* H, float* fac, int B, int nv,
   return (int)cudaGetLastError();
 }
 
+// Returns cudaErrorInvalidValue for nv outside 1 .. kMaxSubstNv.
 extern "C" int chol_solve_fac(const float* fac, const float* G, float* X,
                               int B, int nv, int R, void* stream) {
-  const size_t smem = (size_t)(nv * nv + nv * R) * sizeof(float);
-  int err = set_smem((const void*)chol_solve_fac_kernel, smem);
-  if (err) return err;
-  if (B > 0)
-    chol_solve_fac_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-        fac, G, X, nv, R);
+  if (nv < 1 || nv > kMaxSubstNv) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || R < 1) return (int)cudaGetLastError();
+  if (R <= kSubstWarpMaxR) {
+    const size_t smem = (size_t)kSolveWarps * subst_span4(nv) * sizeof(float4);
+    int err = set_smem((const void*)chol_subst_warp_kernel, smem);
+    if (err) return err;
+    chol_subst_warp_kernel<<<(B + kSolveWarps - 1) / kSolveWarps,
+                             kSolveWarps * 32, smem, s>>>(fac, G, X, B, nv);
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(B, (R + kSubstColThreads - 1) / kSubstColThreads);
+  const int threads = R < kSubstColThreads ? 32 * ((R + 31) / 32)
+                                           : kSubstColThreads;
+  if (nv <= 36)
+    chol_subst_cols_kernel<36><<<grid, threads, 0, s>>>(fac, G, X, nv, R);
+  else
+    chol_subst_cols_kernel<64><<<grid, threads, 0, s>>>(fac, G, X, nv, R);
   return (int)cudaGetLastError();
 }
 

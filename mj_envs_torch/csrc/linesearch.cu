@@ -10,11 +10,13 @@
 // phi'(alpha), then 16 safeguarded Newton/bisection steps; the fused
 // form adds one cost pass at the final alpha.
 //
-// Bound on the card: memory, barely.  The inputs are 4 float rows and
-// one bool row per env (nefc = 296 on hammer-v0, 2.6 MB at B = 512) and
-// the search makes 12 + 2 * 16 + 1 = 45 passes of ~8 flops per row over
-// them (~53 Mflop), so either bound is about a microsecond.  What costs
-// time is the chain of 45 dependent reductions per env.
+// Bound on the card: operations, barely.  The inputs are 4 float rows
+// and one bool row per env (nefc = 296 on hammer-v0, 2.6 MB at B = 512)
+// and the search makes 12 + 2 * 16 + 1 = 45 passes of ~8 flops per row
+// over them (~55 Mflop), so either bound is under a microsecond.  What
+// costs time is the chain of dependent warp reductions per env: one warp
+// per env is 512 warps at B = 512 for 528 SM sub-partitions, with
+// nothing to hide a reduction's latency.
 //
 // Design: one warp per env.  Each lane keeps its rows (at most PER of
 // them, row = lane + 32 * i) in registers for the whole search, so the
@@ -23,6 +25,40 @@
 // total in every lane.  No shared memory and no block barriers: the
 // branch decisions are warp-uniform because every lane holds the same
 // reduced values.
+//
+// linesearch_cost (K5) cuts the chain from 45 dependent reductions to at
+// most 18, with each value computed as K7 computes it (the same row
+// terms, the same per-lane order, the same butterfly), so that K5's
+// alpha is K7's bit for bit:
+// - the 12 bracket doublings become one pass: phi' at 2^0 .. 2^11 in 12
+//   accumulators with 12 interleaved butterflies, then hi = 2^m for the
+//   first m whose phi' is not < 0 (the doubling loop's result exactly:
+//   once its test fails hi stays; a NaN fails it too);
+// - a Newton step takes phi' and phi'' at its alpha in one pass, two
+//   butterflies interleaved;
+// - a step that leaves (lo, hi, alpha) unchanged bit for bit would be
+//   repeated by every later step, so the search stops there (the step
+//   count can be written out).  The safeguarded search usually ends in
+//   bisections between neighbouring floats, so most envs run all 16.
+// - the curvature term selects its factor without a branch: K7's
+//   `fl > 0 ? |fq| <= fl : ja < 0` compiles to a branch and a
+//   reconvergence point per row, divergent across the lanes, which made
+//   a K7 Newton step cost several bracket rounds;
+// - the cost pass gives lin_cost's divide the dividend 1 on rows without
+//   friction loss (where it is not used), since a zero dividend sends
+//   the IEEE divide down its slow path, a call per row.
+// The selected values, and so every sum, are K7's (cost: the parent's).
+// linesearch (K7) is off the main path and keeps the sequential search,
+// one reduction per evaluation, as the reference that K5 equals.
+// Contraction: the row terms are written as before (jar + alpha Jp,
+// s += f Jp), so nvcc fuses them into the same FMAs in both.
+//
+// nvcc -Xptxas -v (CUDA 12.8, sm_90a), registers (K5 takes phi' at 12
+// points per pass up to PER = 16 rows a lane, at 6 for PER = 32):
+//   PER       4    10    16    32
+//   K5       56    96   128   255
+//   K7       40    90   116   213
+//   each: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -34,14 +70,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+
+// COST: the fused search of linesearch_cost (K5); otherwise the
+// sequential search of linesearch (K7), the arithmetic both had before.
 template <int PER, bool COST>
 __global__ void linesearch_cost_kernel(
     const float* __restrict__ jar_g, const float* __restrict__ Jp_g,
     const float* __restrict__ D_g, const float* __restrict__ floss_g,
     const uint8_t* __restrict__ active_g, const float* __restrict__ c1_g,
     const float* __restrict__ c2_g, float* __restrict__ alpha_out,
-    float* __restrict__ cost_out, int B, int R, int bracket_iters,
-    int ls_iters) {
+    float* __restrict__ cost_out, int* __restrict__ steps_out, int B, int R,
+    int bracket_iters, int ls_iters) {
   const int lane = threadIdx.x & 31;
   const int env = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (env >= B) return;  // warp-uniform
@@ -61,59 +103,147 @@ __global__ void linesearch_cost_kernel(
   const float c1 = c1_g[env];
   const float c2 = c2_g[env];
 
-  // phi'(alpha) = c1 + alpha c2 - sum f(jar + alpha Jp) Jp
-  auto dphi = [&](float alpha) {
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const float ja = jar[i] + alpha * Jp[i];
-      const float fq = -D[i] * ja;
-      const float ffric = fminf(fmaxf(fq, -fl[i]), fl[i]);
-      const float fone = ja < 0.0f ? fq : 0.0f;
-      const float f = (fl[i] > 0.0f ? ffric : fone) * act[i];
-      s += f * Jp[i];
-    }
-    return c1 + alpha * c2 - warp_sum(s);
-  };
-  // phi''(alpha) = c2 + sum [row quadratic at alpha] D Jp^2
-  auto ddphi = [&](float alpha) {
-    float s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const float ja = jar[i] + alpha * Jp[i];
-      const float fq = -D[i] * ja;
-      const bool quad = fl[i] > 0.0f ? fabsf(fq) <= fl[i] : ja < 0.0f;
-      s += (quad ? act[i] : 0.0f) * D[i] * Jp[i] * Jp[i];
-    }
-    return c2 + warp_sum(s);
+  // Row i's force at alpha, f(jar + alpha Jp), of
+  // phi'(alpha) = c1 + alpha c2 - sum f Jp; one expression for K5 and K7.
+  auto force = [&](float alpha, int i) {
+    const float ja = jar[i] + alpha * Jp[i];
+    const float fq = -D[i] * ja;
+    const float ffric = fminf(fmaxf(fq, -fl[i]), fl[i]);
+    const float fone = ja < 0.0f ? fq : 0.0f;
+    return (fl[i] > 0.0f ? ffric : fone) * act[i];
   };
 
   float hi = 1.0f;
-  for (int it = 0; it < bracket_iters; ++it)
-    if (dphi(hi) < 0.0f) hi *= 2.0f;
-  float lo = 0.0f;
-  float alpha = fminf(hi, 1.0f);
-  for (int it = 0; it < ls_iters; ++it) {
-    const float d1 = dphi(alpha);
-    const float d2 = ddphi(alpha);
-    if (d1 < 0.0f) lo = alpha; else hi = alpha;
-    const float a_newton = alpha - d1 / fmaxf(d2, 1e-30f);
-    const bool inside = (a_newton > lo) && (a_newton < hi);
-    alpha = inside ? a_newton : 0.5f * (lo + hi);
-  }
-
   if (!COST) {
+    // K7: the sequential search as it was, one reduction per
+    // evaluation: the bracket doubles hi while phi'(hi) < 0, then each
+    // Newton step reduces phi' and then phi''.
+    auto dphi = [&](float alpha) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) s += force(alpha, i) * Jp[i];
+      return c1 + alpha * c2 - warp_sum(s);
+    };
+    // phi''(alpha) = c2 + sum [row quadratic at alpha] D Jp^2
+    auto ddphi = [&](float alpha) {
+      float s = 0.0f;
+#pragma unroll
+      for (int i = 0; i < PER; ++i) {
+        const float ja = jar[i] + alpha * Jp[i];
+        const float fq = -D[i] * ja;
+        const bool quad = fl[i] > 0.0f ? fabsf(fq) <= fl[i] : ja < 0.0f;
+        s += (quad ? act[i] : 0.0f) * D[i] * Jp[i] * Jp[i];
+      }
+      return c2 + warp_sum(s);
+    };
+    for (int it = 0; it < bracket_iters; ++it)
+      if (dphi(hi) < 0.0f) hi *= 2.0f;
+    float lo = 0.0f;
+    float alpha = fminf(hi, 1.0f);
+    for (int it = 0; it < ls_iters; ++it) {
+      const float d1 = dphi(alpha);
+      const float d2 = ddphi(alpha);
+      if (d1 < 0.0f) lo = alpha; else hi = alpha;
+      const float a_newton = alpha - d1 / fmaxf(d2, 1e-30f);
+      const bool inside = (a_newton > lo) && (a_newton < hi);
+      alpha = inside ? a_newton : 0.5f * (lo + hi);
+    }
     if (lane == 0) alpha_out[env] = alpha;
     return;
   }
+
+  // K5's curvature term, the same value as K7's: row i's term of
+  // phi''(alpha) = c2 + sum [row quadratic] D Jp^2.  K7's
+  // `fl > 0 ? |fq| <= fl : ja < 0` compiles to a branch with a
+  // reconvergence point per row, divergent across the lanes; both tests
+  // are taken here and the factor selected, without a branch.
+  auto curv = [&](float alpha, int i) {
+    const float ja = jar[i] + alpha * Jp[i];
+    const float fq = -D[i] * ja;
+    const float q_fric = fabsf(fq) <= fl[i] ? act[i] : 0.0f;
+    const float q_one = ja < 0.0f ? act[i] : 0.0f;
+    return (fl[i] > 0.0f ? q_fric : q_one) * D[i] * Jp[i] * Jp[i];
+  };
+
+  // K5.  The doubling loop ends at hi = 2^m, m the first k < bracket_iters
+  // with !(phi'(2^k) < 0), else 2^bracket_iters: once the test fails, hi
+  // stays and each later iteration repeats it.  So phi' is taken at NPT
+  // powers of two at once, each with the same row order and butterfly
+  // as K7's (bit for bit its value), NPT accumulators in one register
+  // pass.
+  constexpr int NPT = PER <= 16 ? 12 : 6;
+  for (int k0 = 0; k0 < bracket_iters; k0 += NPT) {   // hi = 2^k0
+    float s[NPT];
+#pragma unroll
+    for (int p = 0; p < NPT; ++p) s[p] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+#pragma unroll
+      for (int p = 0; p < NPT; ++p)
+        s[p] += force(hi * (float)(1 << p), i) * Jp[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int p = 0; p < NPT; ++p)
+        s[p] += __shfl_xor_sync(0xffffffffu, s[p], o);
+    int m = NPT;
+#pragma unroll
+    for (int p = NPT - 1; p >= 0; --p) {
+      const float a = hi * (float)(1 << p);
+      if (k0 + p < bracket_iters && !(c1 + a * c2 - s[p] < 0.0f)) m = p;
+    }
+    if (m < NPT) {       // warp-uniform
+      hi *= (float)(1 << m);
+      break;
+    }
+    const int n = bracket_iters - k0 < NPT ? bracket_iters - k0 : NPT;
+    hi *= (float)(1 << n);
+  }
+  // Newton steps, phi' and phi'' in one pass with two butterflies.  A
+  // step that leaves (lo, hi, alpha) as they were, bit for bit, would be
+  // repeated by every later one: the search stops there.
+  float lo = 0.0f;
+  float alpha = fminf(hi, 1.0f);
+  int steps = 0;
+  while (steps < ls_iters) {
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      s1 += force(alpha, i) * Jp[i];
+      s2 += curv(alpha, i);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+    }
+    const float d1 = c1 + alpha * c2 - s1;
+    const float d2 = c2 + s2;
+    const float lo_n = d1 < 0.0f ? alpha : lo;
+    const float hi_n = d1 < 0.0f ? hi : alpha;
+    const float a_newton = alpha - d1 / fmaxf(d2, 1e-30f);
+    const bool inside = (a_newton > lo_n) && (a_newton < hi_n);
+    const float a_n = inside ? a_newton : 0.5f * (lo_n + hi_n);
+    const bool still = same_bits(lo_n, lo) && same_bits(hi_n, hi) &&
+                       same_bits(a_n, alpha);
+    lo = lo_n;
+    hi = hi_n;
+    alpha = a_n;
+    ++steps;
+    if (still) break;    // warp-uniform
+  }
+  if (steps_out != nullptr && lane == 0) steps_out[env] = steps;
   // Row cost at the final alpha (solver._cost_rows, active rows only).
   float s = 0.0f;
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const float ja = jar[i] + alpha * Jp[i];
     const float quad_cost = 0.5f * D[i] * ja * ja;
-    const float lin_cost =
-        fl[i] * fabsf(ja) - 0.5f * (fl[i] * fl[i]) / fmaxf(D[i], 1e-30f);
+    // lin_cost is used on friction rows (fl > 0) only; elsewhere its
+    // divide gets the dividend 1, since fl = 0 would send the IEEE
+    // divide down its slow path.
+    const float half_fl2 = fl[i] > 0.0f ? 0.5f * (fl[i] * fl[i]) : 1.0f;
+    const float lin_cost = fl[i] * fabsf(ja) - half_fl2 / fmaxf(D[i], 1e-30f);
     const float fric_cost = fabsf(D[i] * ja) <= fl[i] ? quad_cost : lin_cost;
     const float one_cost = ja < 0.0f ? quad_cost : 0.0f;
     s += (fl[i] > 0.0f ? fric_cost : one_cost) * act[i];
@@ -128,49 +258,52 @@ __global__ void linesearch_cost_kernel(
 template <int PER, bool COST>
 int launch(const float* jar, const float* Jp, const float* D,
            const float* floss, const uint8_t* active, const float* c1,
-           const float* c2, float* alpha, float* cost, int B, int R,
-           int bracket_iters, int ls_iters, cudaStream_t stream) {
+           const float* c2, float* alpha, float* cost, int* steps, int B,
+           int R, int bracket_iters, int ls_iters, cudaStream_t stream) {
   constexpr int kWarps = 4;
   const int blocks = (B + kWarps - 1) / kWarps;
   if (blocks > 0)
     linesearch_cost_kernel<PER, COST><<<blocks, 32 * kWarps, 0, stream>>>(
-        jar, Jp, D, floss, active, c1, c2, alpha, cost, B, R, bracket_iters,
-        ls_iters);
+        jar, Jp, D, floss, active, c1, c2, alpha, cost, steps, B, R,
+        bracket_iters, ls_iters);
   return (int)cudaGetLastError();
 }
 
 template <bool COST>
 int dispatch(const float* jar, const float* Jp, const float* D,
              const float* floss, const uint8_t* active, const float* c1,
-             const float* c2, float* alpha, float* cost, int B, int R,
-             int bracket_iters, int ls_iters, cudaStream_t s) {
+             const float* c2, float* alpha, float* cost, int* steps, int B,
+             int R, int bracket_iters, int ls_iters, cudaStream_t s) {
   const int per = (R + 31) / 32;
   if (per <= 4)
     return launch<4, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
-                           B, R, bracket_iters, ls_iters, s);
+                           steps, B, R, bracket_iters, ls_iters, s);
   if (per <= 10)
     return launch<10, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
-                            B, R, bracket_iters, ls_iters, s);
+                            steps, B, R, bracket_iters, ls_iters, s);
   if (per <= 16)
     return launch<16, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
-                            B, R, bracket_iters, ls_iters, s);
+                            steps, B, R, bracket_iters, ls_iters, s);
   if (per <= 32)
     return launch<32, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
-                            B, R, bracket_iters, ls_iters, s);
+                            steps, B, R, bracket_iters, ls_iters, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Both return cudaErrorInvalidValue when R exceeds 32 * 32 rows.
+// linesearch_cost writes the Newton steps each env ran to `steps` unless
+// it is null.
 extern "C" int linesearch_cost(const float* jar, const float* Jp,
                                const float* D, const float* floss,
                                const uint8_t* active, const float* c1,
                                const float* c2, float* alpha, float* cost,
-                               int B, int R, int bracket_iters, int ls_iters,
-                               void* stream) {
-  return dispatch<true>(jar, Jp, D, floss, active, c1, c2, alpha, cost, B,
-                        R, bracket_iters, ls_iters, (cudaStream_t)stream);
+                               int* steps, int B, int R, int bracket_iters,
+                               int ls_iters, void* stream) {
+  return dispatch<true>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+                        steps, B, R, bracket_iters, ls_iters,
+                        (cudaStream_t)stream);
 }
 
 extern "C" int linesearch(const float* jar, const float* Jp, const float* D,
@@ -179,5 +312,6 @@ extern "C" int linesearch(const float* jar, const float* Jp, const float* D,
                           int B, int R, int bracket_iters, int ls_iters,
                           void* stream) {
   return dispatch<false>(jar, Jp, D, floss, active, c1, c2, alpha, nullptr,
-                         B, R, bracket_iters, ls_iters, (cudaStream_t)stream);
+                         nullptr, B, R, bracket_iters, ls_iters,
+                         (cudaStream_t)stream);
 }

@@ -41,6 +41,7 @@ KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
            "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat")
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 CHOL_SOLVE_MAX_NV = 64   # chol.cu's kMaxSolveNv: two columns per lane
+CHOL_SUBST_MAX_NV = 64   # chol.cu's kMaxSubstNv: the largest nv bucket
 
 
 def reset_launches() -> None:
@@ -106,9 +107,13 @@ def chol_factor_cuda(H: torch.Tensor) -> torch.Tensor:
 
 
 def chol_solve_fac_cuda(fac: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """K3: X (B, nv, R) = (L L^T)^-1 G from fac."""
+    """K3: X (B, nv, R) = (L L^T)^-1 G from fac; a thread per right-hand
+    side in registers (a warp per env at R = 1); nv <= CHOL_SUBST_MAX_NV."""
     from ._build import load
     B, nv, R = G.shape
+    if nv > CHOL_SUBST_MAX_NV:
+        raise ValueError(f"the chol_solve_fac kernel takes nv <= "
+                         f"{CHOL_SUBST_MAX_NV}; got {nv}")
     _check("fac", fac, (B, nv, nv))
     _check("G", G, (B, nv, R))
     X = torch.empty_like(G)
@@ -164,16 +169,22 @@ def _check_linesearch(jar, Jp, D, floss, active, c1, c2):
 
 
 def linesearch_cost_cuda(jar, Jp, D, floss, active, c1, c2,
-                         bracket_iters: int = 12, ls_iters: int = 16):
-    """K5: (alpha (B,), cost (B,))."""
+                         bracket_iters: int = 12, ls_iters: int = 16,
+                         steps: torch.Tensor | None = None):
+    """K5: (alpha (B,), cost (B,)).  `steps`, an int32 (B,) tensor,
+    receives the Newton steps each env ran (the search stops at a step
+    that changes nothing)."""
     from ._build import load
     B, R = _check_linesearch(jar, Jp, D, floss, active, c1, c2)
+    if steps is not None:
+        _check("steps", steps, (B,), torch.int32)
     alpha = torch.empty_like(c1)
     cost = torch.empty_like(c1)
     err = load().linesearch_cost(
         jar.data_ptr(), Jp.data_ptr(), D.data_ptr(), floss.data_ptr(),
         active.data_ptr(), c1.data_ptr(), c2.data_ptr(), alpha.data_ptr(),
-        cost.data_ptr(), B, R, bracket_iters, ls_iters, _stream(jar))
+        cost.data_ptr(), None if steps is None else steps.data_ptr(),
+        B, R, bracket_iters, ls_iters, _stream(jar))
     _raise_if(err, "linesearch_cost")
     launches["linesearch_cost"] += 1
     return alpha, cost

@@ -62,13 +62,48 @@ def test_cuda_chol_factor(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_chol_solve_fac(cuda):
-    H, _, G = TK.random_spd_problem(np.random.default_rng(10), 64, 33, 129)
+@pytest.mark.parametrize("nv", [30, 33, 36, 64])
+@pytest.mark.parametrize("R", [1, 2, 31, 32, 33, 129, 132])
+def test_cuda_chol_solve_fac(cuda, R, nv):
+    """K3 at the tasks' nv and at its limit of 64 (the two register
+    buckets), R from one right-hand side (a warp per env) through ragged
+    last warps to noslip's 129; env 3's factor is NaN (the factor of a
+    matrix that is not positive definite) and so must be its X, alone."""
+    H, _, G = TK.random_spd_problem(np.random.default_rng(10), 64, nv, R)
+    H[3] = -H[3]
     fac = _np(TK.chol_factor_plain(torch.as_tensor(H)))
+    assert np.isnan(fac[3]).any()
     n = TK.launches["chol_solve_fac"]
     X_k, X_p = _both(TK.chol_solve_mat_fac, (fac, G), cuda)
     assert TK.launches["chol_solve_fac"] == n + 1
-    _close(X_k, X_p, 2e-4, 2e-5)
+    assert torch.isnan(X_k[3]).all()
+    ok = torch.arange(64) != 3
+    assert torch.isfinite(X_k[ok]).all()
+    _close(X_k[ok], X_p[ok], 2e-4, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [30, 33, 36])
+@pytest.mark.parametrize("R", [1, 129])
+def test_cuda_chol_factor_then_subst_equals_block_solve(cuda, R, nv):
+    """K2's factor then K3 is K8 (factor and substitution in one block)
+    bit for bit: K3 keeps the order of operations of K8's substitution."""
+    H, _, G = (torch.as_tensor(x).to(cuda) for x in
+               TK.random_spd_problem(np.random.default_rng(17), 64, nv, R))
+    X3 = TK.chol_solve_fac_cuda(TK.chol_factor_cuda(H), G)
+    X8 = TK.chol_solve_mat_cuda(H, G)
+    torch.cuda.synchronize()
+    assert torch.equal(X3, X8)
+
+
+@pytest.mark.cuda
+def test_cuda_chol_solve_fac_refuses_nv_65(cuda):
+    H, _, G = TK.random_spd_problem(np.random.default_rng(10), 4, 65, 3)
+    fac = TK.chol_factor_plain(torch.as_tensor(H)).contiguous()
+    n = TK.launches["chol_solve_fac"]
+    with pytest.raises(ValueError, match=str(TK.CHOL_SUBST_MAX_NV)):
+        TK.chol_solve_mat_fac(fac.to(cuda), torch.as_tensor(G).to(cuda))
+    assert TK.launches["chol_solve_fac"] == n
 
 
 @pytest.mark.cuda
@@ -97,8 +132,11 @@ def test_cuda_chol_factor_solve_refuses_nv_65(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_linesearch_cost(cuda):
-    args = TK.random_linesearch_problem(np.random.default_rng(12), 64, 296)
+@pytest.mark.parametrize("R", [33, 296, 300])
+def test_cuda_linesearch_cost(cuda, R):
+    """K5 at hammer's 296 rows and at ragged row counts, against the plain
+    version and, bit for bit, against K7's sequential search."""
+    args = TK.random_linesearch_problem(np.random.default_rng(12), 64, R)
     n = TK.launches["linesearch_cost"]
     (a_k, c_k), (a_p, c_p) = _both(TK.linesearch_cost, args, cuda)
     assert TK.launches["linesearch_cost"] == n + 1
@@ -106,6 +144,34 @@ def test_cuda_linesearch_cost(cuda):
     # other side of a kink and move alpha within the search's last
     # bisection bracket (chip_smoke.py prints how far, between two row
     # orders of the plain version); the cost at alpha stays flat.
+    _close(a_k, a_p, 0.0, 2e-3 * float(a_p.abs().max()))
+    _close(c_k, c_p, 1e-5, 1e-6)
+    assert torch.equal(a_k, TK.linesearch_cuda(
+        *(torch.as_tensor(np.asarray(x)).to(cuda) for x in args)))
+
+
+@pytest.mark.cuda
+def test_cuda_linesearch_cost_early_exit(cuda):
+    """K5 stops at a Newton step that changes nothing; alpha is still
+    K7's after all 16 steps, bit for bit.  Envs 32..63 have no active
+    row and phi'(a) = c2 (a - (1 + 2^-23)), c2 a power of two: the bracket
+    ends at 2, step 1 lands on the root 1 + 2^-23, where phi' is 0, step
+    2 bisects [1, 1 + 2^-23] back to 1 (ties to even) and step 3 repeats
+    step 2's state: 3 steps.  Envs 0..31 are the generator's problem."""
+    rng = np.random.default_rng(18)
+    args = list(TK.random_linesearch_problem(rng, 64, 296))
+    args[4][32:] = False
+    c2 = np.exp2(rng.integers(-2, 3, 32)).astype(np.float32)
+    args[6][32:] = c2
+    args[5][32:] = -c2 * np.float32(1 + 2.0 ** -23)
+    dev = [torch.as_tensor(np.asarray(x)).to(cuda) for x in args]
+    steps = torch.zeros(64, dtype=torch.int32, device=cuda)
+    a_k, c_k = TK.linesearch_cost_cuda(*dev, 12, 16, steps=steps)
+    torch.cuda.synchronize()
+    assert torch.equal(a_k, TK.linesearch_cuda(*dev, 12, 16))
+    assert (steps[32:] == 3).all() and (a_k[32:] == 1.0).all()
+    assert int(steps.min()) >= 1 and int(steps.max()) <= 16
+    a_p, c_p = TK.linesearch_cost_plain(*_t(*args), 12, 16)
     _close(a_k, a_p, 0.0, 2e-3 * float(a_p.abs().max()))
     _close(c_k, c_p, 1e-5, 1e-6)
 

@@ -271,6 +271,22 @@ def test_chol_factor_solve_kernel_refuses_nv_above_its_limit():
     assert torch.isfinite(TK.chol_solve(Ht, gt)).all()
 
 
+def test_chol_solve_fac_kernel_refuses_nv_above_its_limit():
+    """K3 keeps a right-hand side's nv values in registers, in buckets of
+    nv up to 64: its wrapper raises for nv above 64, naming the limit,
+    before any launch; the front end's plain version on the CPU has no
+    such limit."""
+    H, _, G = TK.random_spd_problem(np.random.default_rng(7), 2, 65, 3)
+    Ht, Gt = _t(H, G)
+    fac = TK.chol_factor_plain(Ht).contiguous()
+    n = TK.launches["chol_solve_fac"]
+    with pytest.raises(ValueError, match=str(TK.CHOL_SUBST_MAX_NV)):
+        TK.chol_solve_fac_cuda(fac, Gt)
+    assert TK.launches["chol_solve_fac"] == n
+    assert TK.CHOL_SUBST_MAX_NV == 64
+    assert torch.isfinite(TK.chol_solve_mat_fac(fac, Gt)).all()
+
+
 def test_generators_match_jax_distributions():
     """The numpy generators keep the JAX generators' value ranges."""
     rng = np.random.default_rng(8)
