@@ -14,11 +14,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
    relocate's 36, and beside the block factor-and-solve at R = 1; the
    substitution from K2's factor beside the block factor-and-solve at
    R = 129 and R = 1; the fused linesearch's alpha beside the sequential
-   search's, with the Newton steps its envs ran; the
-   noslip kernel also on the sweep problem of a real
-   hammer chunk after a reset and one step, with the sweeps its envs
-   ran): max error, kernel / plain / library times (CUDA events), and
-   the card's bound for the same work;
+   search's, with the Newton steps its envs ran; the noslip kernel also
+   with 96 of its 129 rows empty contact slots, and on the sweep problem
+   of a real hammer chunk after a reset and one step, with the sweeps
+   its envs ran): max error, kernel / plain / library times (CUDA
+   events), and the card's bound for the same work;
 4. a small-input reference: 8 envs of each task stepped twice on the
    card and on the CPU (plain versions) from the same state and actions;
    on the hammer card state, noslip without the mass-matrix factor (its
@@ -29,9 +29,16 @@ Phases, in order; any failure raises and the exit code is non-zero:
    timed steps and read after them;
 6. one JSON line listing the kernels, then the device line.
 
+Phase 3 also prints SHA-256 digests of the factor kernel's and the
+noslip kernel's outputs on its seeded problems.  `python3 chip_smoke.py
+--digests` prints only those, after phases 1 and 2, and no result: copy
+the script into another checkout and run it there to hold that
+checkout's kernels against these bit for bit.
+
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -161,8 +168,9 @@ def compare_kernels(TK, dev, real_noslip):
             library_ms=lib_ms))
 
     mat = B_CHUNK * NV * NV * F32
-    # One triangle: K3 reads only L's of the factor (the rest is zeros by
-    # layout), K8 only one of the symmetric H.
+    # One triangle: K2 and K8 read only one of the symmetric H, K3 only
+    # L's of the factor (the rest is zeros by layout); K2 writes all of
+    # the factor.
     tri = B_CHUNK * (NV * (NV + 1) // 2) * F32
     vec = B_CHUNK * NV * F32
     rhs = B_CHUNK * NV * R_NOSLIP * F32
@@ -176,7 +184,7 @@ def compare_kernels(TK, dev, real_noslip):
            time_ms(lambda: TK.chol_factor_cuda(H), 50),
            time_ms(lambda: TK.chol_factor_plain(H), 20),
            time_ms(lambda: torch.linalg.cholesky_ex(H), 20),
-           2 * mat, B_CHUNK * NV ** 3 / 3, 2e-4)
+           tri + mat, B_CHUNK * NV ** 3 / 3, 2e-4)
 
     # K3: substitution from the factor, R = 129 (noslip's X = M^-1 D^T)
     # and R = 1 (qacc_smooth, a warp per env).  Beside the plain version,
@@ -332,6 +340,21 @@ def compare_kernels(TK, dev, real_noslip):
            time_ms(lambda: TK.noslip_sweep_plain(*ns, NOSLIP_ITERS), 1, 1),
            None, ns_bytes, ns_flops, 1e-5)
 
+    # K6 with the empty contact slots of a real chunk (their A row and
+    # column 0, r 0, gate 0): 96 of the 129 rows, as after a reset.
+    ns_e = card(TK.random_noslip_problem(np.random.default_rng(5), B_CHUNK,
+                                         R_NOSLIP, empty=96))
+    u_e = TK.noslip_sweep_cuda(*ns_e, NOSLIP_ITERS, 0.0)
+    rel, ab = rel_err(u_e, TK.noslip_sweep_plain(*ns_e, NOSLIP_ITERS))
+    log(f"  noslip_sweep with 96 empty rows of 129: tol=0 vs plain "
+        f"max_abs_err {ab:.3e} rel {rel:.3e} (tol 1e-5); kernel tol=0 "
+        f"{time_ms(lambda: TK.noslip_sweep_cuda(*ns_e, NOSLIP_ITERS, 0.0), 20):.4f}"
+        f" ms (no empty rows: {entries[-1]['ms']:.4f} ms)")
+    check(rel <= 1e-5, "noslip_sweep with empty rows: kernel disagrees "
+          f"with its plain version (rel {rel:.3e} > 1e-5)")
+    check(bool((u_e[:, -96:] == 0).all()),
+          "noslip_sweep moved an empty row")
+
     # K6 on the main path's own problem: the sweep problem of a real
     # 512-env hammer chunk; the bound counts the sweeps its envs ran.
     real = [t.contiguous() for t in real_noslip[:7]]
@@ -356,6 +379,36 @@ def compare_kernels(TK, dev, real_noslip):
     check(rel <= 1e-5, "noslip_sweep on a real chunk: kernel disagrees "
           f"with its plain version (rel {rel:.3e} > 1e-5)")
     return entries
+
+
+def k2_k6_digests(TK, dev, real_noslip):
+    """Phase 3: SHA-256 of K2's factor and of K6's u and sweeps on phase
+    3's seeded problems (the same draws), and of the real chunk's A, so
+    that two checkouts' kernels can be held bit for bit (`--digests`);
+    with each call's time, to compare them in one run."""
+    rng = np.random.default_rng(0)
+    card = lambda xs: [torch.as_tensor(x).to(dev) for x in xs]
+    H = card(TK.random_spd_problem(rng, B_CHUNK, NV, R_NOSLIP))[0]
+    TK.random_linesearch_problem(rng, B_CHUNK, NEFC)   # phase 3's next draw
+    synthetic = card(TK.random_noslip_problem(rng, B_CHUNK, R_NOSLIP))
+    real = [t.contiguous() for t in real_noslip[:7]]
+    out = {"chol_factor fac": TK.chol_factor_cuda(H),
+           "real hammer chunk A": real[0]}
+    log(f"  time chol_factor: "
+        f"{time_ms(lambda: TK.chol_factor_cuda(H), 50):.4f} ms")
+    for name, prob in (("synthetic", synthetic), ("real hammer chunk", real)):
+        for tol in (0.0, 1e-3):
+            sw = torch.zeros(prob[5].shape[0], dtype=torch.int32, device=dev)
+            out[f"noslip_sweep u, {name}, tol {tol:g}"] = \
+                TK.noslip_sweep_cuda(*prob, NOSLIP_ITERS, tol, sweeps=sw)
+            out[f"noslip_sweep sweeps, {name}, tol {tol:g}"] = sw
+            log(f"  time noslip_sweep {name} tol {tol:g}: "
+                f"{time_ms(lambda: TK.noslip_sweep_cuda(*prob, NOSLIP_ITERS, tol), 20):.4f}"
+                f" ms")
+    torch.cuda.synchronize()
+    for what, t in out.items():
+        log(f"  sha256 {what}: "
+            f"{hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()}")
 
 
 def fk_flops(s):
@@ -576,10 +629,16 @@ def main():
     log(f"[2] kernels built and loaded in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'} s)")
 
+    real = hammer_chunk_noslip(envs, VectorEnv, random_actions, _apply_var,
+                               dev)
+    if "--digests" in sys.argv[1:]:
+        log("[3] digests only:")
+        k2_k6_digests(TK, dev, real)
+        return
     log(f"[3] kernels vs plain versions at B = {B_CHUNK}:")
     entries = [compare_fk(envs, VectorEnv, _apply_var, dev)]
-    entries += compare_kernels(TK, dev, hammer_chunk_noslip(
-        envs, VectorEnv, random_actions, _apply_var, dev))
+    entries += compare_kernels(TK, dev, real)
+    k2_k6_digests(TK, dev, real)
 
     log("[4] small-input reference:")
     for task in TASKS:

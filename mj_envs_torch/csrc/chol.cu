@@ -17,21 +17,32 @@
 // and far below the 67 TFLOP/s float32 peak.  The real limit is the
 // dependency chain of nv pivot steps, and how many threads share it.
 //
-// Design of chol_factor and chol_solve_mat: one block per env; the
-// matrix lives in shared memory for the whole factorization (each
-// element is read from device memory once and each output written
-// once); chol_solve_mat never writes the factor to device memory.  The
-// factor is right-looking, as on the TPU: pivot inv_s = rsqrt(akk),
-// column k = row k * inv_s (the working matrix stays symmetric), then a
-// rank-1 trailing update spread over all threads.  A non-positive pivot
-// yields NaN/inf, never a clamp or a trap: the Newton solver relies on
-// that NaN to take its gradient fallback.  chol_solve_mat's substitution
-// runs column-oriented (forward, then back) with threads over (row,
-// right-hand side) pairs, two block barriers a step.  No TPU padding or
-// batch-minor layout is carried over.  chol_solve_mat is off the main
-// path and keeps this arithmetic on purpose: it is the block reference
-// that chol_factor_solve, and chol_factor then chol_solve_fac, equal bit
-// for bit (tests/test_torch_cuda.py, chip_smoke.py phase 3).
+// Design of chol_solve_mat: one block per env; the matrix lives in
+// shared memory for the whole factorization (each element is read from
+// device memory once and each output written once); the factor never
+// goes to device memory.  The factor is right-looking, as on the TPU:
+// pivot inv_s = rsqrt(akk), column k = row k * inv_s (the working matrix
+// stays symmetric), then a rank-1 trailing update spread over all
+// threads.  A non-positive pivot yields NaN/inf, never a clamp or a
+// trap: the Newton solver relies on that NaN to take its gradient
+// fallback.  Its substitution runs column-oriented (forward, then back)
+// with threads over (row, right-hand side) pairs, two block barriers a
+// step.  No TPU padding or batch-minor layout is carried over.
+// chol_solve_mat is off the main path and keeps this arithmetic on
+// purpose: it is the block reference that chol_factor_solve, and
+// chol_factor then chol_solve_fac, equal bit for bit
+// (tests/test_torch_cuda.py, chip_smoke.py phase 3).
+//
+// chol_factor (the mass matrix's factor, once a substep) runs the warp
+// factor of chol_factor_solve (below: one warp per env, the same
+// __device__ functions) and writes the factor out row by row, lane j
+// writing fac[k][j], coalesced; it reads only H's upper triangle.  Its
+// factor is the block factor's bit for bit.  What bounds it is K4's
+// factor chain, nv steps of shared-memory reads, FMA chain, shuffle,
+// rsqrt and warp sync.  Writing each row inside the factor's loop ran
+// slower (the stores lengthen every step), and copying H in by 16-byte
+// words into a staging area, then into the columns, no faster.  nv above
+// 64 returns cudaErrorInvalidValue.
 //
 // chol_solve_fac (the substitution from a stored factor: noslip's
 // X = M^-1 D^T at R = 129, qacc_smooth at R = 1) has no block barrier in
@@ -83,8 +94,8 @@
 //   chol_subst_cols_kernel<36>  64 registers, 10368 bytes smem
 //   chol_subst_warp_kernel      32 registers
 //   chol_factor_solve_kernel    47 registers
+//   chol_factor_kernel          37 registers
 //   chol_solve_mat_kernel       30 registers
-//   chol_factor_kernel          24 registers
 //   each: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -159,18 +170,6 @@ __device__ void chol_subst_smem(const float* Lt, float* Y, int nv, int R) {
     }
   }
   __syncthreads();
-}
-
-__global__ void chol_factor_kernel(const float* __restrict__ H,
-                                   float* __restrict__ fac, int nv) {
-  extern __shared__ float smem[];
-  float* A = smem;
-  float* Lt = A + nv * nv;
-  float* col = Lt + nv * nv;
-  const size_t off = (size_t)blockIdx.x * nv * nv;
-  for (int e = threadIdx.x; e < nv * nv; e += blockDim.x) A[e] = H[off + e];
-  chol_factor_smem(A, Lt, col, nv);
-  for (int e = threadIdx.x; e < nv * nv; e += blockDim.x) fac[off + e] = Lt[e];
 }
 
 // Value v of the lane that owns column (or row) k: v0 for k < 32, v1
@@ -349,6 +348,84 @@ __device__ __forceinline__ void left_update(const float* col0,
   }
 }
 
+// One env's matrix in a warp's shared memory by columns, At[j * ld + i]
+// = A[i][j] (lane j's storage), for the warp factor of chol_factor and
+// chol_factor_solve.  Lane l owns columns j0 = l and j1 = l + 32.
+struct WarpCols {
+  float* At;
+  float* col0;
+  float* col1;
+  int ld, j0, j1;
+  bool own0, own1;
+  __device__ WarpCols(float* base, int nv, int lane)
+      : ld(solve_ld(nv)), j0(lane), j1(lane + 32), own0(lane < nv),
+        own1(lane + 32 < nv) {
+    At = base + (threadIdx.x >> 5) * nv * ld;
+    col0 = At + (own0 ? j0 : 0) * ld;
+    col1 = At + (own1 ? j1 : 0) * ld;
+  }
+};
+
+// Each lane copies the upper part of its columns of h (nv x nv, row-
+// major), all copies in flight at once (one memory latency, not one per
+// row); the caller waits with __pipeline_wait_prior.
+__device__ __forceinline__ void copy_upper(const WarpCols& w, const float* h,
+                                           int nv) {
+  for (int r = 0; r < nv; ++r) {
+    if (w.own0 && w.j0 >= r)
+      __pipeline_memcpy_async(w.col0 + r, h + r * nv + w.j0, 4);
+    if (w.own1 && w.j1 >= r)
+      __pipeline_memcpy_async(w.col1 + r, h + r * nv + w.j1, 4);
+  }
+  __pipeline_commit();
+}
+
+// Factor, left-looking: step k finishes column k of L^T at once.  Lane j
+// (j >= k) takes A[k][j] less the products of the earlier steps, in the
+// order the right-looking factor subtracts them (the same roundings);
+// the pivot reaches every lane from its owner by shuffle and each takes
+// its rsqrt; c_j = that * inv_s becomes Lt[k][j], kept in col_j[k].
+// Entries col_j[k] for k > j are never written.
+__device__ __forceinline__ void warp_factor(const WarpCols& w, int nv) {
+  const bool wide = nv > 32;   // the second columns are in use
+  for (int k = 0; k < nv; ++k) {
+    float s0, s1;
+    left_update(w.col0, w.col1, w.At + k * w.ld, k, wide, s0, s1);
+    const float inv_s = rsqrtf(from_owner(s0, s1, k));
+    if (w.own0 && w.j0 >= k) w.col0[k] = s0 * inv_s;
+    if (w.own1 && w.j1 >= k) w.col1[k] = s1 * inv_s;
+    __syncwarp();   // the next step reads row k + 1, written by its owner
+  }
+}
+
+// chol_factor: the warp factor written out as fac[k][j] = Lt[k][j] for
+// j >= k and 0 below, row by row (lane j writes fac[k][j]: coalesced),
+// four rows of a column read at a time.
+__global__ void __launch_bounds__(kSolveWarps * 32)
+chol_factor_kernel(const float* __restrict__ H, float* __restrict__ fac,
+                   int B, int nv) {
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31;
+  const int env = blockIdx.x * kSolveWarps + (threadIdx.x >> 5);
+  if (env >= B) return;
+  const WarpCols w(reinterpret_cast<float*>(smem4), nv, lane);
+  copy_upper(w, H + (size_t)env * nv * nv, nv);
+  __pipeline_wait_prior(0);
+  warp_factor(w, nv);
+  float* f = fac + (size_t)env * nv * nv;
+  for (int k0 = 0; k0 < nv; k0 += 4) {
+    const float4 l0 = *reinterpret_cast<const float4*>(w.col0 + k0);
+    const float4 l1 = *reinterpret_cast<const float4*>(w.col1 + k0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = k0 + u;
+      if (k >= nv) break;
+      if (w.own0) f[k * nv + w.j0] = w.j0 >= k ? part(l0, u) : 0.0f;
+      if (w.own1) f[k * nv + w.j1] = w.j1 >= k ? part(l1, u) : 0.0f;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kSolveWarps * 32)
 chol_factor_solve_kernel(const float* __restrict__ H,
                          const float* __restrict__ g,
@@ -357,40 +434,16 @@ chol_factor_solve_kernel(const float* __restrict__ H,
   const int lane = threadIdx.x & 31;
   const int env = blockIdx.x * kSolveWarps + (threadIdx.x >> 5);
   if (env >= B) return;
-  const int ld = solve_ld(nv);
-  // The matrix by columns, At[j * ld + i] = A[i][j]: lane j's storage.
-  float* At = reinterpret_cast<float*>(smem4)
-            + (threadIdx.x >> 5) * nv * ld;
-  const float* h = H + (size_t)env * nv * nv;
-  const int j0 = lane, j1 = lane + 32;   // this lane's columns
-  const bool own0 = j0 < nv, own1 = j1 < nv;
-  float* col0 = At + (own0 ? j0 : 0) * ld;
-  float* col1 = At + (own1 ? j1 : 0) * ld;
-  // Each lane copies the upper part of its columns, all copies in
-  // flight at once (one memory latency, not one per row).
-  for (int r = 0; r < nv; ++r) {
-    if (own0 && j0 >= r) __pipeline_memcpy_async(col0 + r, h + r * nv + j0, 4);
-    if (own1 && j1 >= r) __pipeline_memcpy_async(col1 + r, h + r * nv + j1, 4);
-  }
-  __pipeline_commit();
+  const WarpCols w(reinterpret_cast<float*>(smem4), nv, lane);
+  const float* At = w.At;
+  const float *col0 = w.col0, *col1 = w.col1;
+  const int ld = w.ld, j0 = w.j0, j1 = w.j1;
+  const bool own0 = w.own0, own1 = w.own1;
+  copy_upper(w, H + (size_t)env * nv * nv, nv);
   float y0 = own0 ? g[(size_t)env * nv + j0] : 0.0f;
   float y1 = own1 ? g[(size_t)env * nv + j1] : 0.0f;
   __pipeline_wait_prior(0);
-
-  // Factor, left-looking: step k finishes column k of L^T at once.
-  // Lane j (j >= k) takes A[k][j] less the products of the earlier steps,
-  // in the order the right-looking factor subtracts them (the same
-  // roundings); the pivot reaches every lane from its owner by shuffle
-  // and each takes its rsqrt; c_j = that * inv_s becomes Lt[k][j].
-  const bool wide = nv > 32;   // the second columns are in use
-  for (int k = 0; k < nv; ++k) {
-    float s0, s1;
-    left_update(col0, col1, At + k * ld, k, wide, s0, s1);
-    const float inv_s = rsqrtf(from_owner(s0, s1, k));
-    if (own0 && j0 >= k) col0[k] = s0 * inv_s;
-    if (own1 && j1 >= k) col1[k] = s1 * inv_s;
-    __syncwarp();   // the next step reads row k + 1, written by its owner
-  }
+  warp_factor(w, nv);
 
   // Forward, L y = g: y_k = y_k / Lt[k][k], then y_j -= Lt[k][j] y_k
   // (j > k); Lt[k][j] comes from column j, four rows at a time.  Every
@@ -454,13 +507,17 @@ int set_smem(const void* fn, size_t bytes) {
 
 }  // namespace
 
+// Returns cudaErrorInvalidValue for nv outside 1 .. kMaxSolveNv.
 extern "C" int chol_factor(const float* H, float* fac, int B, int nv,
                            void* stream) {
-  const size_t smem = (size_t)(2 * nv * nv + nv) * sizeof(float);
+  if (nv < 1 || nv > kMaxSolveNv) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)kSolveWarps * nv * solve_ld(nv) * sizeof(float);
   int err = set_smem((const void*)chol_factor_kernel, smem);
   if (err) return err;
-  if (B > 0)
-    chol_factor_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(H, fac, nv);
+  const int blocks = (B + kSolveWarps - 1) / kSolveWarps;
+  if (blocks > 0)
+    chol_factor_kernel<<<blocks, kSolveWarps * 32, smem,
+                         (cudaStream_t)stream>>>(H, fac, B, nv);
   return (int)cudaGetLastError();
 }
 

@@ -42,6 +42,7 @@ KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
 launches: Dict[str, int] = {k: 0 for k in KERNELS}
 CHOL_SOLVE_MAX_NV = 64   # chol.cu's kMaxSolveNv: two columns per lane
 CHOL_SUBST_MAX_NV = 64   # chol.cu's kMaxSubstNv: the largest nv bucket
+NOSLIP_MAX_R = 256       # noslip.cu's kMaxR: 8 rows a lane
 
 
 def reset_launches() -> None:
@@ -94,9 +95,13 @@ def _raise_if(err: int, name: str) -> None:
 # ---------------------------------------------------------------------------
 
 def chol_factor_cuda(H: torch.Tensor) -> torch.Tensor:
-    """K2: fac (B, nv, nv) of H (B, nv, nv)."""
+    """K2: fac (B, nv, nv) of H (B, nv, nv), one warp per env (K4's
+    factor); nv <= CHOL_SOLVE_MAX_NV."""
     from ._build import load
     B, nv = H.shape[0], H.shape[-1]
+    if nv > CHOL_SOLVE_MAX_NV:
+        raise ValueError(f"the chol_factor kernel takes nv <= "
+                         f"{CHOL_SOLVE_MAX_NV}; got {nv}")
     _check("H", H, (B, nv, nv))
     fac = torch.empty_like(H)
     err = load().chol_factor(H.data_ptr(), fac.data_ptr(), B, nv,
@@ -208,10 +213,14 @@ def linesearch_cuda(jar, Jp, D, floss, active, c1, c2,
 def noslip_sweep_cuda(A, a_safe, lo, hi, gate, r0, u0, iters: int,
                       tol: float = 0.0,
                       sweeps: torch.Tensor | None = None) -> torch.Tensor:
-    """K6: u (B, R) after at most `iters` sweeps (per-env exit if tol>0).
-    `sweeps`, an int32 (B,) tensor, receives the sweeps each env ran."""
+    """K6: u (B, R) after at most `iters` sweeps (per-env exit if tol>0),
+    one warp per env; R <= NOSLIP_MAX_R.  `sweeps`, an int32 (B,)
+    tensor, receives the sweeps each env ran."""
     from ._build import load
     B, R = r0.shape
+    if R > NOSLIP_MAX_R:
+        raise ValueError(f"the noslip_sweep kernel takes R <= "
+                         f"{NOSLIP_MAX_R}; got {R}")
     _check("A", A, (B, R, R))
     for name, t in (("a_safe", a_safe), ("lo", lo), ("hi", hi),
                     ("gate", gate), ("r0", r0), ("u0", u0)):
@@ -432,9 +441,12 @@ def random_spd_problem(rng: np.random.Generator, B: int, nv: int, R: int,
 
 
 def random_noslip_problem(rng: np.random.Generator, B: int, R: int,
-                          dtype=np.float32):
+                          dtype=np.float32, empty: int = 0):
     """(A, a_safe, lo, hi, gate, r0, u0): SPD-ish A with a dominant
-    diagonal (like D M^-1 D^T), box bounds, ~75% live rows."""
+    diagonal (like D M^-1 D^T), box bounds, ~75% live rows.  The last
+    `empty` rows are empty contact slots, as in a real chunk: their D row
+    is zero, so their row and column of A, r0, u0, lo, hi and gate are
+    0 and a_safe is 1 (the same draws: empty = 0 gives the same arrays)."""
     G = rng.standard_normal((B, R, R)).astype(dtype)
     A = np.einsum("bik,bjk->bij", G, G) / R + 2.0 * np.eye(R, dtype=dtype)
     a_safe = np.maximum(np.einsum("bii->bi", A), 1e-3)
@@ -443,6 +455,13 @@ def random_noslip_problem(rng: np.random.Generator, B: int, R: int,
     gate = (rng.uniform(size=(B, R)) > 0.25).astype(dtype)
     r0 = rng.standard_normal((B, R))
     u0 = np.clip(rng.standard_normal((B, R)) * 0.1, lo, hi)
+    if empty:
+        e = slice(R - empty, R)
+        A[:, e, :] = 0.0
+        A[:, :, e] = 0.0
+        a_safe[:, e] = 1.0
+        for x in (lo, hi, gate, r0, u0):
+            x[:, e] = 0.0
     return tuple(np.asarray(x, dtype=dtype)
                  for x in (A, a_safe, lo, hi, gate, r0, u0))
 

@@ -53,12 +53,39 @@ def _close(a, b, rtol, atol):
 
 
 @pytest.mark.cuda
-def test_cuda_chol_factor(cuda):
-    H, g, _ = TK.random_spd_problem(np.random.default_rng(9), 64, 33, 1)
+@pytest.mark.parametrize("nv", [1, 30, 32, 33, 36, 63, 64])
+def test_cuda_chol_factor(cuda, nv):
+    """K2 (K4's warp factor, written out) against its plain version, and
+    K2 then K3 equal to K8 bit for bit: K2's factor is the block
+    factor's."""
+    H, g, G = TK.random_spd_problem(np.random.default_rng(9), 64, nv, 5)
     n = TK.launches["chol_factor"]
     (x_k, fac_k), (x_p, fac_p) = _both(TK.chol_solve_factor, (H, g), cuda)
     assert TK.launches["chol_factor"] == n + 1
+    assert torch.all(torch.tril(fac_k, -1) == 0.0)
     _close((x_k, fac_k), (x_p, fac_p), 2e-4, 2e-5)
+    Hc, Gc = torch.as_tensor(H).to(cuda), torch.as_tensor(G).to(cuda)
+    X3 = TK.chol_solve_fac_cuda(fac_k, Gc)
+    assert torch.equal(X3, TK.chol_solve_mat_cuda(Hc, Gc))
+
+
+@pytest.mark.cuda
+def test_cuda_chol_factor_not_positive_definite_gives_nan(cuda):
+    H, _, _ = TK.random_spd_problem(np.random.default_rng(9), 8, 33, 1)
+    H[3] = -H[3]
+    fac = TK.chol_factor_cuda(torch.as_tensor(H).to(cuda))
+    torch.cuda.synchronize()
+    assert torch.isnan(fac[3]).any()
+    assert torch.isfinite(fac[torch.arange(8, device=cuda) != 3]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_chol_factor_refuses_nv_65(cuda):
+    H, _, _ = TK.random_spd_problem(np.random.default_rng(9), 4, 65, 1)
+    n = TK.launches["chol_factor"]
+    with pytest.raises(ValueError, match=str(TK.CHOL_SOLVE_MAX_NV)):
+        TK.chol_factor_cuda(torch.as_tensor(H).to(cuda))
+    assert TK.launches["chol_factor"] == n
 
 
 @pytest.mark.cuda
@@ -177,12 +204,73 @@ def test_cuda_linesearch_cost_early_exit(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_noslip_sweep(cuda):
-    args = TK.random_noslip_problem(np.random.default_rng(13), 16, 129)
+@pytest.mark.parametrize("R", [1, 31, 32, 33, 126, 129, 132, 160, 161, 256])
+def test_cuda_noslip_sweep(cuda, R):
+    """K6 at tol 0 against its plain version: R through ragged last
+    lanes and chunks, both row buckets (160 and 256 rows)."""
+    args = TK.random_noslip_problem(np.random.default_rng(13), 16, R)
     n = TK.launches["noslip_sweep"]
     u_k, u_p = _both(lambda *a: TK.noslip_sweep(*a, 20, tol=0.0), args, cuda)
     assert TK.launches["noslip_sweep"] == n + 1
     _close(u_k, u_p, 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [3, 20])
+def test_cuda_noslip_sweep_tol_exit(cuda, iters):
+    """At tol 1e-3 each env runs 1 .. iters sweeps and ends where tol = 0
+    ends after that many sweeps, bit for bit."""
+    args = [torch.as_tensor(x).to(cuda) for x in
+            TK.random_noslip_problem(np.random.default_rng(22), 64, 129)]
+    sweeps = torch.zeros(64, dtype=torch.int32, device=cuda)
+    u_tol = TK.noslip_sweep_cuda(*args, iters, 1e-3, sweeps=sweeps)
+    torch.cuda.synchronize()
+    assert int(sweeps.min()) >= 1 and int(sweeps.max()) <= iters
+    for n in sweeps.unique().tolist():
+        ran = sweeps == n
+        assert torch.equal(u_tol[ran], TK.noslip_sweep_cuda(*args, n, 0.0)[ran])
+
+
+@pytest.mark.cuda
+def test_cuda_noslip_sweep_empty_rows(cuda):
+    """Empty contact slots, as a real chunk has (A row and column 0, r 0,
+    gate 0): the kernel agrees with its plain version and leaves those
+    rows at u0 = 0."""
+    args = TK.random_noslip_problem(np.random.default_rng(23), 32, 129,
+                                    empty=96)
+    u_k, u_p = _both(lambda *a: TK.noslip_sweep(*a, 20, tol=0.0), args, cuda)
+    _close(u_k, u_p, 1e-5, 1e-5)
+    assert torch.all(u_k[:, -96:] == 0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_noslip_sweep_nan_in_a_gate0_column(cuda):
+    """A NaN in column k0 of A, a row that cannot move (gate 0), still
+    reaches r through A * 0, as in the scan: every gated row j with a NaN
+    A[j, k0] ends at lo[j] (the kernel's fmaxf of NaN and lo is lo; the
+    plain version's torch.maximum, like jnp.clip, keeps the NaN)."""
+    args = TK.random_noslip_problem(np.random.default_rng(24), 16, 129)
+    A, lo, gate = args[0], args[2], args[4]
+    k0 = 40
+    gate[:, k0] = 0.0
+    A[:, ::2, k0] = np.nan
+    u = TK.noslip_sweep(*(torch.as_tensor(x).to(cuda) for x in args), 20,
+                        tol=0.0)
+    torch.cuda.synchronize()
+    hit = np.isnan(A[:, :, k0]) & (gate > 0)
+    assert hit.any()
+    np.testing.assert_array_equal(_np(u)[hit], lo[hit])
+
+
+@pytest.mark.cuda
+def test_cuda_noslip_sweep_refuses_R_above_its_limit(cuda):
+    R = TK.NOSLIP_MAX_R + 1
+    args = [torch.as_tensor(x).to(cuda) for x in
+            TK.random_noslip_problem(np.random.default_rng(25), 2, R)]
+    n = TK.launches["noslip_sweep"]
+    with pytest.raises(ValueError, match=str(TK.NOSLIP_MAX_R)):
+        TK.noslip_sweep(*args, 20, tol=0.0)
+    assert TK.launches["noslip_sweep"] == n
 
 
 @pytest.mark.cuda

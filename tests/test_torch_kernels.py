@@ -239,6 +239,29 @@ def test_noslip_sweep_matches_pallas_interpret(interpret):
     np.testing.assert_allclose(_np(u_t), _np(u_p), rtol=1e-5, atol=1e-5)
 
 
+def test_noslip_sweep_with_empty_rows_matches_vmapped_scan():
+    """A real chunk's sweep problem holds empty contact slots (A row and
+    column 0, r 0, gate 0, a_safe 1): the plain version keeps the scan's
+    result there, every such row staying at u0 = 0 exactly."""
+    empty = 64
+    args = TK.random_noslip_problem(np.random.default_rng(19), 4, 129,
+                                    empty=empty)
+    assert not args[0][:, -empty:].any() and not args[4][:, -empty:].any()
+    u_j = jax.vmap(lambda *xs: KR._noslip_scan(*xs, 20))(*args)
+    u_t = TK.noslip_sweep(*_t(*args), 20, tol=0.0)
+    np.testing.assert_allclose(_np(u_t), _np(u_j), rtol=1e-5, atol=1e-5)
+    assert np.all(_np(u_t)[:, -empty:] == 0.0)
+    assert np.all(_np(u_j)[:, -empty:] == 0.0)
+
+
+def test_noslip_sweep_with_empty_rows_matches_pallas_interpret(interpret):
+    args = TK.random_noslip_problem(np.random.default_rng(20), 3, 9, empty=4)
+    u_p = KR._noslip_pallas(*[jnp.asarray(x) for x in args], 4, tol=0.0)
+    u_t = TK.noslip_sweep(*_t(*args), 4, tol=0.0)
+    np.testing.assert_allclose(_np(u_t), _np(u_p), rtol=1e-5, atol=1e-5)
+    assert np.all(_np(u_t)[:, -4:] == 0.0)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch rule and the generators
 # ---------------------------------------------------------------------------
@@ -285,6 +308,34 @@ def test_chol_solve_fac_kernel_refuses_nv_above_its_limit():
     assert TK.launches["chol_solve_fac"] == n
     assert TK.CHOL_SUBST_MAX_NV == 64
     assert torch.isfinite(TK.chol_solve_mat_fac(fac, Gt)).all()
+
+
+def test_noslip_sweep_kernel_refuses_R_above_its_limit():
+    """K6 keeps a lane's rows in registers, in buckets of up to 8 rows a
+    lane: its wrapper raises for R above 256, naming the limit, before
+    any launch; the front end's plain version on the CPU has no such
+    limit."""
+    R = TK.NOSLIP_MAX_R + 1
+    args = _t(*TK.random_noslip_problem(np.random.default_rng(21), 1, R))
+    n = TK.launches["noslip_sweep"]
+    with pytest.raises(ValueError, match=str(TK.NOSLIP_MAX_R)):
+        TK.noslip_sweep_cuda(*args, 1)
+    assert TK.launches["noslip_sweep"] == n
+    assert TK.NOSLIP_MAX_R == 256
+    assert torch.isfinite(TK.noslip_sweep(*args, 1)).all()
+
+
+def test_chol_factor_kernel_refuses_nv_above_its_limit():
+    """K2 runs K4's warp factor, two columns per lane: its wrapper raises
+    for nv above 64, naming the limit, before any launch."""
+    H, g, _ = TK.random_spd_problem(np.random.default_rng(7), 2, 65, 1)
+    Ht, gt = _t(H, g)
+    n = TK.launches["chol_factor"]
+    with pytest.raises(ValueError, match=str(TK.CHOL_SOLVE_MAX_NV)):
+        TK.chol_factor_cuda(Ht)
+    assert TK.launches["chol_factor"] == n
+    _, fac = TK.chol_solve_factor(Ht, gt)
+    assert torch.isfinite(fac).all()
 
 
 def test_generators_match_jax_distributions():
