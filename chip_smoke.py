@@ -11,14 +11,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    main path's shapes (B = 512 envs; hammer nv = 33, nefc = 296, noslip
    R = 129; the FK kernel on each task's tree with its per-env model
    fields; the Newton-step solve also at door's and pen's nv = 30 and
-   relocate's 36, and beside the block factor-and-solve at R = 1; the
-   substitution from K2's factor beside the block factor-and-solve at
-   R = 129 and R = 1; the fused linesearch's alpha beside the sequential
-   search's, with the Newton steps its envs ran; the noslip kernel also
-   with 96 of its 129 rows empty contact slots, and on the sweep problem
-   of a real hammer chunk after a reset and one step, with the sweeps
-   its envs ran): max error, kernel / plain / library times (CUDA
-   events), and the card's bound for the same work;
+   relocate's 36; the noslip kernel also with 96 of its 129 rows empty
+   contact slots, and on the sweep problem of a real hammer chunk after
+   a reset and one step, with the sweeps its envs ran): max error,
+   kernel / plain / library times (CUDA events), and the card's bound
+   for the same work.  Beside them, bit for bit, each against a
+   reference kernel that no front end calls: the Newton-step solve, the
+   substitution from K2's factor (R = 129 and 1) and the factor-and-
+   solve (R = 129 and 1, nv 30, 33, 36) against the block
+   factor-and-solve (`chol_solve_mat_block_cuda`); both linesearches'
+   alpha against the sequential search (`linesearch_seq_cuda`), with
+   the Newton steps the fused search ran; the references' times;
 4. a small-input reference: 8 envs of each task stepped twice on the
    card and on the CPU (plain versions) from the same state and actions;
    on the hammer card state, noslip without the mass-matrix factor (its
@@ -29,11 +32,12 @@ Phases, in order; any failure raises and the exit code is non-zero:
    timed steps and read after them;
 6. one JSON line listing the kernels, then the device line.
 
-Phase 3 also prints SHA-256 digests of the factor kernel's and the
-noslip kernel's outputs on its seeded problems.  `python3 chip_smoke.py
---digests` prints only those, after phases 1 and 2, and no result: copy
-the script into another checkout and run it there to hold that
-checkout's kernels against these bit for bit.
+Phase 3 also prints SHA-256 digests of the outputs of the factor
+kernel, the noslip kernel, the alpha-only linesearch and the
+factor-and-solve on its seeded problems, with their times.  `python3
+chip_smoke.py --digests` prints only those, after phases 1 and 2, and no
+result: copy the script into another checkout and run it there to hold
+that checkout's kernels against these bit for bit.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -119,6 +123,16 @@ def time_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def same_bits(what, got, want):
+    """Print how far `got` is from `want` and fail unless they are equal
+    bit for bit."""
+    eq = torch.equal(got, want)
+    log(f"  {what}: max |diff| "
+        f"{(got.double() - want.double()).abs().max().item():.3e}, bit for "
+        f"bit: {eq}")
+    check(eq, f"{what}: not equal bit for bit")
+
+
 def rel_err(got, want):
     """max |got - want| / max |want| (and the max abs error)."""
     d = (got.double() - want.double()).abs().max().item()
@@ -188,20 +202,18 @@ def compare_kernels(TK, dev, real_noslip):
 
     # K3: substitution from the factor, R = 129 (noslip's X = M^-1 D^T)
     # and R = 1 (qacc_smooth, a warp per env).  Beside the plain version,
-    # K2's factor then K3 is held bit for bit against K8, whose block
-    # substitution runs K3's order of operations.
+    # K2's factor then K3 is held bit for bit against the block
+    # factor-and-solve, whose substitution runs K3's order of operations.
     L = fac_p.transpose(-1, -2).contiguous()
     X_k = TK.chol_solve_fac_cuda(fac_p, G)
     x1_k = TK.chol_solve_fac_cuda(fac_p, g1)
     errs = {"X (R=129)": rel_err(X_k, TK.chol_solve_fac_plain(fac_p, G)),
             "x (R=1)": rel_err(x1_k, TK.chol_solve_fac_plain(fac_p, g1))}
     for R, Y in ((R_NOSLIP, G), (1, g1)):
-        X3 = TK.chol_solve_fac_cuda(fac_k, Y)
-        X8 = TK.chol_solve_mat_cuda(H, Y)
-        log(f"  chol_solve_fac R={R} on chol_factor's factor vs the block "
-            f"factor-and-solve (chol_solve_mat): max |diff| "
-            f"{(X3.double() - X8.double()).abs().max().item():.3e}, bit for "
-            f"bit: {torch.equal(X3, X8)}")
+        same_bits(f"chol_solve_fac R={R} on chol_factor's factor vs the "
+                  f"block factor-and-solve (chol_solve_mat_block)",
+                  TK.chol_solve_fac_cuda(fac_k, Y),
+                  TK.chol_solve_mat_block_cuda(H, Y))
     bms1, by1 = bound(tri + 2 * vec, 2 * B_CHUNK * NV * NV)
     log(f"  chol_solve_fac R=1: kernel "
         f"{time_ms(lambda: TK.chol_solve_fac_cuda(fac_p, g1), 50):.4f} ms, "
@@ -219,17 +231,15 @@ def compare_kernels(TK, dev, real_noslip):
     # K4: factor and solve, one right-hand side (Newton step, damping),
     # at each task's nv; the JSON entry is hammer's.  Its bytes: one
     # triangle of the symmetric H, g and x.  Beside the plain version it
-    # is held bit for bit against K8 at R = 1, whose block factor and
-    # substitution are the arithmetic of the one-block-per-env K4 of
-    # earlier versions.
+    # is held bit for bit against the block factor-and-solve at R = 1,
+    # the arithmetic of the one-block-per-env K4 of earlier versions.
     def k4(H, g):
         nv = g.shape[-1]
         x = TK.chol_factor_solve_cuda(H, g)
-        x8 = TK.chol_solve_mat_cuda(H, g[..., None].contiguous())[..., 0]
-        log(f"  chol_factor_solve nv={nv} vs the block factor-and-solve "
-            f"(chol_solve_mat, R = 1): max |diff| "
-            f"{(x.double() - x8.double()).abs().max().item():.3e}, bit for "
-            f"bit: {torch.equal(x, x8)}")
+        same_bits(f"chol_factor_solve nv={nv} vs the block factor-and-solve "
+                  f"(chol_solve_mat_block, R = 1)", x,
+                  TK.chol_solve_mat_block_cuda(
+                      H, g[..., None].contiguous())[..., 0])
         return ({"x": rel_err(x, TK.chol_solve_plain(H, g))},
                 time_ms(lambda: TK.chol_factor_solve_cuda(H, g), 50),
                 time_ms(lambda: TK.chol_solve_plain(H, g), 20),
@@ -255,11 +265,22 @@ def compare_kernels(TK, dev, real_noslip):
            "mj_envs_torch/csrc/chol.cu", *k4(H, g), 2e-4)
 
     # K8: factor and solve over R = 129 right-hand sides (noslip without
-    # a mass-matrix factor); the factor never leaves shared memory.
+    # a mass-matrix factor); the factor never leaves shared memory.  Held
+    # bit for bit against the block factor-and-solve at R = 129 and R = 1
+    # (K4's kernel) at each task's nv, and timed beside it.
     def lib_solve_mat():
         L, _ = torch.linalg.cholesky_ex(H)
         return torch.cholesky_solve(G, L)
 
+    rng_k8 = np.random.default_rng(6)
+    for nv in K4_NVS:
+        Hn, _, Gn = (H, g, G) if nv == NV else card(
+            TK.random_spd_problem(rng_k8, B_CHUNK, nv, R_NOSLIP))
+        for R, Y in ((R_NOSLIP, Gn), (1, Gn[..., :1].contiguous())):
+            same_bits(f"chol_solve_mat nv={nv} R={R} vs the block "
+                      f"factor-and-solve (chol_solve_mat_block)",
+                      TK.chol_solve_mat_cuda(Hn, Y),
+                      TK.chol_solve_mat_block_cuda(Hn, Y))
     record("chol_solve_mat", "mj_envs_tpu/physics/kernels.py:719",
            "mj_envs_torch/csrc/chol.cu",
            {"X (R=129)": rel_err(TK.chol_solve_mat_cuda(H, G),
@@ -269,6 +290,8 @@ def compare_kernels(TK, dev, real_noslip):
            time_ms(lib_solve_mat, 20),
            tri + 2 * rhs,
            B_CHUNK * (NV ** 3 / 3 + 2 * NV * NV * R_NOSLIP), 2e-4)
+    log(f"  chol_solve_mat_block (the reference, R = 129): "
+        f"{time_ms(lambda: TK.chol_solve_mat_block_cuda(H, G), 50):.4f} ms")
 
     # K5: linesearch + row cost.  Operations per row: 8 for each phi'
     # and phi'' evaluation, 12 for the final cost; 12 bracket phi', 16
@@ -277,14 +300,17 @@ def compare_kernels(TK, dev, real_noslip):
     steps = torch.zeros(B_CHUNK, dtype=torch.int32, device=dev)
     a_k, c_k = TK.linesearch_cost_cuda(*ls, 12, 16, steps=steps)
     a_p, c_p = TK.linesearch_cost_plain(*ls, 12, 16)
+    a_seq = TK.linesearch_seq_cuda(*ls, 12, 16)
     a_7 = TK.linesearch_cuda(*ls, 12, 16)
     st = steps.float()
-    log(f"  linesearch_cost alpha vs linesearch's (the sequential search): "
-        f"max |diff| {(a_k.double() - a_7.double()).abs().max().item():.3e}"
-        f", bit for bit: {torch.equal(a_k, a_7)}; Newton steps run per env "
-        f"min {int(st.min())} mean {st.mean().item():.2f} max "
-        f"{int(st.max())}, {int((steps == 16).sum())} of {B_CHUNK} envs "
-        f"all 16")
+    same_bits("linesearch_cost alpha vs the sequential search's "
+              "(linesearch_seq)", a_k, a_seq)
+    log(f"  linesearch_cost Newton steps run per env min {int(st.min())} "
+        f"mean {st.mean().item():.2f} max {int(st.max())}, "
+        f"{int((steps == 16).sum())} of {B_CHUNK} envs all 16")
+    same_bits("linesearch alpha vs the sequential search's (linesearch_seq)",
+              a_7, a_seq)
+    same_bits("linesearch alpha vs linesearch_cost's", a_7, a_k)
     # Where phi' crosses zero at a kink, the safeguarded search ends in a
     # bisection bracket, and which side a float32 sum puts phi'(alpha) on
     # moves alpha within it.  So alpha is held at 2e-3 and the cost at
@@ -317,6 +343,8 @@ def compare_kernels(TK, dev, real_noslip):
            time_ms(lambda: TK.linesearch_plain(*ls, 12, 16), 5),
            None, ls_bytes - B_CHUNK * F32,
            B_CHUNK * NEFC * (12 * 8 + 16 * 16), 2e-3)
+    log(f"  linesearch_seq (the reference): "
+        f"{time_ms(lambda: TK.linesearch_seq_cuda(*ls, 12, 16), 50):.4f} ms")
 
     # K6: noslip sweeps at tol = 0 (exactly 20 sweeps, as the plain
     # version); then tol = 1e-3 (the main path's) against tol = 0.
@@ -381,21 +409,31 @@ def compare_kernels(TK, dev, real_noslip):
     return entries
 
 
-def k2_k6_digests(TK, dev, real_noslip):
-    """Phase 3: SHA-256 of K2's factor and of K6's u and sweeps on phase
-    3's seeded problems (the same draws), and of the real chunk's A, so
-    that two checkouts' kernels can be held bit for bit (`--digests`);
-    with each call's time, to compare them in one run."""
+def kernel_digests(TK, dev, real_noslip):
+    """Phase 3: SHA-256 of K2's factor, K8's X (R = 129 and 1), K7's
+    alpha and K6's u and sweeps on phase 3's seeded problems (the same
+    draws), and of the real chunk's A, so that two checkouts' kernels can
+    be held bit for bit (`--digests`); with each call's time, to compare
+    them in one run.  Only wrappers that every earlier checkout of the
+    port has are called."""
     rng = np.random.default_rng(0)
     card = lambda xs: [torch.as_tensor(x).to(dev) for x in xs]
-    H = card(TK.random_spd_problem(rng, B_CHUNK, NV, R_NOSLIP))[0]
-    TK.random_linesearch_problem(rng, B_CHUNK, NEFC)   # phase 3's next draw
+    H, g, G = card(TK.random_spd_problem(rng, B_CHUNK, NV, R_NOSLIP))
+    g1 = g[..., None].contiguous()
+    ls = card(TK.random_linesearch_problem(rng, B_CHUNK, NEFC))
     synthetic = card(TK.random_noslip_problem(rng, B_CHUNK, R_NOSLIP))
     real = [t.contiguous() for t in real_noslip[:7]]
     out = {"chol_factor fac": TK.chol_factor_cuda(H),
+           "chol_solve_mat X, R 129": TK.chol_solve_mat_cuda(H, G),
+           "chol_solve_mat X, R 1": TK.chol_solve_mat_cuda(H, g1),
+           "linesearch alpha": TK.linesearch_cuda(*ls, 12, 16),
            "real hammer chunk A": real[0]}
-    log(f"  time chol_factor: "
-        f"{time_ms(lambda: TK.chol_factor_cuda(H), 50):.4f} ms")
+    for name, fn in (
+            ("chol_factor", lambda: TK.chol_factor_cuda(H)),
+            ("chol_solve_mat R 129", lambda: TK.chol_solve_mat_cuda(H, G)),
+            ("chol_solve_mat R 1", lambda: TK.chol_solve_mat_cuda(H, g1)),
+            ("linesearch", lambda: TK.linesearch_cuda(*ls, 12, 16))):
+        log(f"  time {name}: {time_ms(fn, 50):.4f} ms")
     for name, prob in (("synthetic", synthetic), ("real hammer chunk", real)):
         for tol in (0.0, 1e-3):
             sw = torch.zeros(prob[5].shape[0], dtype=torch.int32, device=dev)
@@ -525,10 +563,8 @@ def noslip_without_factor(TK, envs, apply_var, st, dev):
     ns_fac = S.noslip(out.M, out.rows, res, nfl, nc, s.noslip_iterations,
                       M_fac=fac)
     for f in ("qacc", "efc_force"):
-        rel, ab = rel_err(getattr(ns_mat, f), getattr(ns_fac, f))
-        log(f"  noslip(M_fac=None) vs noslip(M_fac) {f}: max abs diff "
-            f"{ab:.3e}, rel {rel:.3e} (tol 1e-5)")
-        check(rel <= 1e-5, f"noslip without a factor disagrees on {f}")
+        same_bits(f"noslip(M_fac=None) vs noslip(M_fac) {f}",
+                  getattr(ns_mat, f), getattr(ns_fac, f))
 
 
 def small_reference(envs, VectorEnv, dev, task, n=8, steps=2):
@@ -633,12 +669,12 @@ def main():
                                dev)
     if "--digests" in sys.argv[1:]:
         log("[3] digests only:")
-        k2_k6_digests(TK, dev, real)
+        kernel_digests(TK, dev, real)
         return
     log(f"[3] kernels vs plain versions at B = {B_CHUNK}:")
     entries = [compare_fk(envs, VectorEnv, _apply_var, dev)]
     entries += compare_kernels(TK, dev, real)
-    k2_k6_digests(TK, dev, real)
+    kernel_digests(TK, dev, real)
 
     log("[4] small-input reference:")
     for task in TASKS:

@@ -6,6 +6,7 @@
 //   chol_solve_fac     <- _chol_solve_mat_fac_kernel (_chol_solve_mat_fac_pallas)
 //   chol_factor_solve  <- _chol_solve_kernel         (_chol_solve_pallas)
 //   chol_solve_mat     <- _chol_solve_mat_kernel     (_chol_solve_mat_pallas)
+// and keeps chol_solve_mat_block, the block reference the others equal.
 //
 // Layouts (row-major, batch-first): H (B, nv, nv); fac (B, nv, nv) with
 // fac[b, k, :] = column k of L (zero above the diagonal entry k), the
@@ -17,21 +18,40 @@
 // and far below the 67 TFLOP/s float32 peak.  The real limit is the
 // dependency chain of nv pivot steps, and how many threads share it.
 //
-// Design of chol_solve_mat: one block per env; the matrix lives in
-// shared memory for the whole factorization (each element is read from
-// device memory once and each output written once); the factor never
-// goes to device memory.  The factor is right-looking, as on the TPU:
-// pivot inv_s = rsqrt(akk), column k = row k * inv_s (the working matrix
-// stays symmetric), then a rank-1 trailing update spread over all
-// threads.  A non-positive pivot yields NaN/inf, never a clamp or a
-// trap: the Newton solver relies on that NaN to take its gradient
-// fallback.  Its substitution runs column-oriented (forward, then back)
-// with threads over (row, right-hand side) pairs, two block barriers a
-// step.  No TPU padding or batch-minor layout is carried over.
-// chol_solve_mat is off the main path and keeps this arithmetic on
-// purpose: it is the block reference that chol_factor_solve, and
-// chol_factor then chol_solve_fac, equal bit for bit
-// (tests/test_torch_cuda.py, chip_smoke.py phase 3).
+// The block factor-and-solve, chol_solve_mat_block (no TPU kernel of
+// its own: the arithmetic K8 had before its redesign), is the reference
+// that chol_factor_solve, chol_factor then chol_solve_fac, and
+// chol_solve_mat equal bit for bit (tests/test_torch_cuda.py,
+// chip_smoke.py phase 3); no front end calls it.  One block per env; the
+// matrix lives in shared memory for the whole factorization; the factor
+// is right-looking, as on the TPU: pivot inv_s = rsqrt(akk), column k =
+// row k * inv_s (the working matrix stays symmetric), then a rank-1
+// trailing update spread over all threads.  A non-positive pivot yields
+// NaN/inf, never a clamp or a trap: the Newton solver relies on that NaN
+// to take its gradient fallback, and every kernel here keeps it.  Its
+// substitution runs column-oriented (forward, then back) with threads
+// over (row, right-hand side) pairs, two block barriers a step.  No TPU
+// padding or batch-minor layout is carried over.
+//
+// chol_solve_mat (K8: noslip's X = M^-1 D^T when no factor of M is at
+// hand, R = 129 on hammer) is chol_factor's warp factor, then
+// chol_solve_fac's substitution, in one launch, the factor never
+// leaving shared memory.  One block per env with a thread per
+// right-hand side (160 threads at R = 129; beyond 256 right-hand sides a
+// grid.y of blocks, each of which factors H again: nv^3/3 operations
+// and one triangle of H more per 256 right-hand sides).  Warp 0 copies
+// H's upper triangle by cp.async into its column store and factors it
+// while every thread's loads of its right-hand side are in flight; one
+// barrier, a shared-to-shared copy of the factor into the substitution's
+// padded row and column layouts, a second barrier, then the
+// substitution, each thread on its own column in registers.  Its result
+// is chol_factor then chol_solve_fac's, and so the block reference's,
+// bit for bit.  What bounds it is the factor's chain (as chol_factor's)
+// followed by the substitution's instruction issue (as chol_solve_fac's
+// at R = 129); the overlap hides G's trip from memory only.  R = 1 is
+// exactly chol_factor_solve's problem (one right-hand side, the same
+// factor and substitution order) and runs its kernel.  nv above 64
+// returns cudaErrorInvalidValue.
 //
 // chol_factor (the mass matrix's factor, once a substep) runs the warp
 // factor of chol_factor_solve (below: one warp per env, the same
@@ -69,7 +89,7 @@
 // chol_subst_smem's order of operations (forward: y_k /= L_kk, then
 // y_j -= L_jk y_k for j > k, k ascending; back: x_k /= L_kk, then y_i -=
 // L_ik x_k for i < k, k descending) and its IEEE divides, so each element
-// sees chol_solve_mat's roundings.  nv above 64 returns
+// sees chol_solve_mat_block's roundings.  nv above 64 returns
 // cudaErrorInvalidValue.
 //
 // chol_factor_solve (one right-hand side, the most launched kernel) runs
@@ -95,7 +115,9 @@
 //   chol_subst_warp_kernel      32 registers
 //   chol_factor_solve_kernel    47 registers
 //   chol_factor_kernel          37 registers
-//   chol_solve_mat_kernel       30 registers
+//   chol_solve_mat_kernel<64>   122 registers
+//   chol_solve_mat_kernel<36>   74 registers
+//   chol_solve_mat_block_kernel 30 registers
 //   each: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -182,46 +204,20 @@ __device__ __forceinline__ float part(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// chol_solve_fac, R >= kSubstWarpMaxR + 1: a thread per right-hand side,
-// its NV values in registers (NV, a multiple of 4, bounds nv).  The
-// env's factor sits in shared memory twice, by rows of L^T (Lr[k][j] =
-// Lt[k][j], the forward pass's row k) and by columns (Lc[k][i] = Lt[i][k],
-// the back pass's), both padded to NV x NV at the FRONT: real index
-// p = NV - nv + k, padded entries 0 with 1 on the diagonal.  Padded
+// The substitution of a thread's right-hand side y (NV values in
+// registers, NV a multiple of 4 that bounds nv) on an env's factor in
+// shared memory, twice: by rows of L^T (Lr[k][j] = Lt[k][j], the forward
+// pass's row k) and by columns (Lc[k][i] = Lt[i][k], the back pass's),
+// both padded to NV x NV at the FRONT: real index p = NV - nv + k, padded
+// entries 0 with 1 on the diagonal, and y's padded values 0.  Padded
 // steps are skipped, and a padded y only receives updates (in the back
 // pass), never gives one, so that the real entries see exactly the
 // operations of chol_subst_smem in its order, NaN and inf included.
 template <int NV>
-__global__ void __launch_bounds__(kSubstColThreads)
-chol_subst_cols_kernel(const float* __restrict__ fac,
-                       const float* __restrict__ G,
-                       float* __restrict__ X, int nv, int R) {
-  __shared__ float4 Lr4[NV * NV / 4], Lc4[NV * NV / 4];
-  float* Lr = reinterpret_cast<float*>(Lr4);
-  float* Lc = reinterpret_cast<float*>(Lc4);
-  const int env = blockIdx.x;
-  const int r = blockIdx.y * kSubstColThreads + threadIdx.x;
-  const bool live = r < R;
-  const int pad = NV - nv;
-  const float* f = fac + (size_t)env * nv * nv;
-  const float* g = G + (size_t)env * nv * R + r;
-
-  // This column's loads first, all in flight while the factor arrives.
-  float y[NV];
-#pragma unroll
-  for (int p = 0; p < NV; ++p)
-    y[p] = (live && p >= pad) ? g[(size_t)(p - pad) * R] : 0.0f;
-  for (int e = threadIdx.x; e < NV * NV; e += blockDim.x) {
-    const int a = e / NV, b = e % NV;
-    // Lr[a][b] = Lt[a][b] (coalesced read); Lc[a][b] = Lt[b][a].
-    Lr[e] = (a >= pad && b >= pad) ? f[(a - pad) * nv + (b - pad)]
-                                   : (a == b ? 1.0f : 0.0f);
-    Lc[e] = (a >= pad && b >= pad) ? f[(b - pad) * nv + (a - pad)]
-                                   : (a == b ? 1.0f : 0.0f);
-  }
-  __syncthreads();   // the only barrier
-  if (!live) return;
-
+__device__ __forceinline__ void subst_cols(const float4* Lr4,
+                                           const float4* Lc4, float (&y)[NV],
+                                           int pad) {
+  const float* Lr = reinterpret_cast<const float*>(Lr4);
   // Forward, L y = g: y_k /= L_kk, then y_j -= Lt[k][j] y_k for j > k.
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
@@ -248,10 +244,58 @@ chol_subst_cols_kernel(const float* __restrict__ fac,
         if (4 * c + u < k) y[4 * c + u] -= part(l, u) * y[k];
     }
   }
-  float* x = X + (size_t)env * nv * R + r;
+}
+
+// Thread r's right-hand side, column r of g (nv x R, row-major), into
+// y[NV] at the end (subst_cols' padding); 0 where r is not live.
+template <int NV>
+__device__ __forceinline__ void load_rhs(const float* g, float (&y)[NV],
+                                         int pad, int R, bool live) {
+#pragma unroll
+  for (int p = 0; p < NV; ++p)
+    y[p] = (live && p >= pad) ? g[(size_t)(p - pad) * R] : 0.0f;
+}
+
+template <int NV>
+__device__ __forceinline__ void store_rhs(float* x, const float (&y)[NV],
+                                          int pad, int R) {
 #pragma unroll
   for (int p = 0; p < NV; ++p)
     if (p >= pad) x[(size_t)(p - pad) * R] = y[p];
+}
+
+// chol_solve_fac, R >= kSubstWarpMaxR + 1: a thread per right-hand side
+// (subst_cols), the env's factor read into Lr and Lc behind the block's
+// one barrier.
+template <int NV>
+__global__ void __launch_bounds__(kSubstColThreads)
+chol_subst_cols_kernel(const float* __restrict__ fac,
+                       const float* __restrict__ G,
+                       float* __restrict__ X, int nv, int R) {
+  __shared__ float4 Lr4[NV * NV / 4], Lc4[NV * NV / 4];
+  float* Lr = reinterpret_cast<float*>(Lr4);
+  float* Lc = reinterpret_cast<float*>(Lc4);
+  const int env = blockIdx.x;
+  const int r = blockIdx.y * kSubstColThreads + threadIdx.x;
+  const bool live = r < R;
+  const int pad = NV - nv;
+  const float* f = fac + (size_t)env * nv * nv;
+
+  // This column's loads first, all in flight while the factor arrives.
+  float y[NV];
+  load_rhs<NV>(G + (size_t)env * nv * R + r, y, pad, R, live);
+  for (int e = threadIdx.x; e < NV * NV; e += blockDim.x) {
+    const int a = e / NV, b = e % NV;
+    // Lr[a][b] = Lt[a][b] (coalesced read); Lc[a][b] = Lt[b][a].
+    Lr[e] = (a >= pad && b >= pad) ? f[(a - pad) * nv + (b - pad)]
+                                   : (a == b ? 1.0f : 0.0f);
+    Lc[e] = (a >= pad && b >= pad) ? f[(b - pad) * nv + (a - pad)]
+                                   : (a == b ? 1.0f : 0.0f);
+  }
+  __syncthreads();   // the only barrier
+  if (!live) return;
+  subst_cols<NV>(Lr4, Lc4, y, pad);
+  store_rhs<NV>(X + (size_t)env * nv * R + r, y, pad, R);
 }
 
 // chol_solve_fac, R <= kSubstWarpMaxR (qacc_smooth's one right-hand
@@ -479,9 +523,66 @@ chol_factor_solve_kernel(const float* __restrict__ H,
   if (own1) x[(size_t)env * nv + j1] = y1;
 }
 
-__global__ void chol_solve_mat_kernel(const float* __restrict__ H,
-                                      const float* __restrict__ G,
-                                      float* __restrict__ X, int nv, int R) {
+// chol_solve_mat, R >= 2: warp 0 factors H into a WarpCols column
+// store (chol_factor's warp factor) while every thread's right-hand side
+// arrives in its registers; behind one barrier the block copies the
+// factor into Lr and Lc (col_j[k] = Lt[k][j], a shared-to-shared pass),
+// and behind a second each thread runs subst_cols, as
+// chol_subst_cols_kernel does on a stored factor.  Dynamic shared memory:
+// Lr, Lc (NV x NV each), then the column store (nv x solve_ld(nv)).
+template <int NV>
+__global__ void __launch_bounds__(kSubstColThreads)
+chol_solve_mat_kernel(const float* __restrict__ H,
+                      const float* __restrict__ G, float* __restrict__ X,
+                      int nv, int R) {
+  extern __shared__ float4 smem4[];
+  float4* Lr4 = smem4;
+  float4* Lc4 = smem4 + NV * NV / 4;
+  float* Lr = reinterpret_cast<float*>(Lr4);
+  float* Lc = reinterpret_cast<float*>(Lc4);
+  float* cols = reinterpret_cast<float*>(Lc4 + NV * NV / 4);
+  const int env = blockIdx.x;
+  const int r = blockIdx.y * kSubstColThreads + threadIdx.x;
+  const bool live = r < R;
+  const int pad = NV - nv;
+  const bool factor_warp = threadIdx.x < 32;   // warp-uniform
+  // Only warp 0 touches its column store (WarpCols places warp w's at
+  // w x nv x ld floats).
+  const WarpCols w(cols, nv, threadIdx.x & 31);
+  if (factor_warp) copy_upper(w, H + (size_t)env * nv * nv, nv);
+  float y[NV];
+  load_rhs<NV>(G + (size_t)env * nv * R + r, y, pad, R, live);
+  if (factor_warp) {
+    __pipeline_wait_prior(0);
+    warp_factor(w, nv);
+  }
+  __syncthreads();
+  const int ld = w.ld;
+  for (int e = threadIdx.x; e < NV * NV; e += blockDim.x) {
+    const int a = e / NV, b = e % NV;
+    const int i = a - pad, j = b - pad;
+    // Lr[a][b] = Lt[i][j] = col_j[i] (j >= i); Lc[a][b] = Lt[j][i] =
+    // col_i[j] (i >= j); the entries below the diagonal are 0, as in
+    // chol_factor's factor, and col_j[k] for k > j is never written.
+    const bool real = a >= pad && b >= pad;
+    const float diag = a == b ? 1.0f : 0.0f;
+    Lr[e] = real ? (j >= i ? cols[j * ld + i] : 0.0f) : diag;
+    Lc[e] = real ? (i >= j ? cols[i * ld + j] : 0.0f) : diag;
+  }
+  __syncthreads();
+  if (!live) return;
+  subst_cols<NV>(Lr4, Lc4, y, pad);
+  store_rhs<NV>(X + (size_t)env * nv * R + r, y, pad, R);
+}
+
+// chol_solve_mat_block: the block factor and substitution (one block of
+// kThreads per env, everything staged in shared memory), the reference
+// that chol_factor_solve, chol_factor then chol_solve_fac, and
+// chol_solve_mat equal bit for bit.
+__global__ void chol_solve_mat_block_kernel(const float* __restrict__ H,
+                                            const float* __restrict__ G,
+                                            float* __restrict__ X, int nv,
+                                            int R) {
   extern __shared__ float smem[];
   float* A = smem;
   float* Lt = A + nv * nv;
@@ -559,13 +660,38 @@ extern "C" int chol_factor_solve(const float* H, const float* g, float* x,
   return (int)cudaGetLastError();
 }
 
+// Returns cudaErrorInvalidValue for nv outside 1 .. kMaxSolveNv.  R = 1
+// is chol_factor_solve's problem and runs its kernel.
 extern "C" int chol_solve_mat(const float* H, const float* G, float* X,
                               int B, int nv, int R, void* stream) {
+  if (nv < 1 || nv > kMaxSolveNv) return (int)cudaErrorInvalidValue;
+  if (R == 1) return chol_factor_solve(H, G, X, B, nv, stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B < 1 || R < 1) return (int)cudaGetLastError();
+  const dim3 grid(B, (R + kSubstColThreads - 1) / kSubstColThreads);
+  const int threads = R < kSubstColThreads ? 32 * ((R + 31) / 32)
+                                           : kSubstColThreads;
+  const int NV = nv <= 36 ? 36 : 64;
+  const size_t smem =
+      (size_t)(2 * NV * NV + nv * solve_ld(nv)) * sizeof(float);
+  const void* fn = NV == 36 ? (const void*)chol_solve_mat_kernel<36>
+                            : (const void*)chol_solve_mat_kernel<64>;
+  int err = set_smem(fn, smem);
+  if (err) return err;
+  if (NV == 36)
+    chol_solve_mat_kernel<36><<<grid, threads, smem, s>>>(H, G, X, nv, R);
+  else
+    chol_solve_mat_kernel<64><<<grid, threads, smem, s>>>(H, G, X, nv, R);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int chol_solve_mat_block(const float* H, const float* G, float* X,
+                                    int B, int nv, int R, void* stream) {
   const size_t smem = (size_t)(2 * nv * nv + nv + nv * R) * sizeof(float);
-  int err = set_smem((const void*)chol_solve_mat_kernel, smem);
+  int err = set_smem((const void*)chol_solve_mat_block_kernel, smem);
   if (err) return err;
   if (B > 0)
-    chol_solve_mat_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
+    chol_solve_mat_block_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
         H, G, X, nv, R);
   return (int)cudaGetLastError();
 }

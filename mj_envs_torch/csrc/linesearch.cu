@@ -3,12 +3,16 @@
 // at alpha.
 //
 // Replaces two TPU kernels of mj_envs_tpu/physics/kernels.py, one
-// template instantiated twice:
+// template instantiated for each, and a third instance kept as their
+// reference:
 //   linesearch_cost <- _linesearch_cost_kernel (_linesearch_cost_pallas)
 //   linesearch      <- _linesearch_kernel      (_linesearch_pallas)
-// Both run the search of _linesearch_alpha_vals: 12 bracket doublings of
+//   linesearch_seq     the sequential search, no TPU kernel: only the
+//                      bit-for-bit checks call it (chip_smoke.py phase 3,
+//                      tests/test_torch_cuda.py), never a front end
+// All run the search of _linesearch_alpha_vals: 12 bracket doublings of
 // phi'(alpha), then 16 safeguarded Newton/bisection steps; the fused
-// form adds one cost pass at the final alpha.
+// form with the cost adds one cost pass at the final alpha.
 //
 // Bound on the card: operations, barely.  The inputs are 4 float rows
 // and one bool row per env (nefc = 296 on hammer-v0, 2.6 MB at B = 512)
@@ -26,10 +30,11 @@
 // branch decisions are warp-uniform because every lane holds the same
 // reduced values.
 //
-// linesearch_cost (K5) cuts the chain from 45 dependent reductions to at
-// most 18, with each value computed as K7 computes it (the same row
-// terms, the same per-lane order, the same butterfly), so that K5's
-// alpha is K7's bit for bit:
+// The fused search (linesearch_cost, K5, and linesearch, K7, which stops
+// before the cost pass) cuts the chain from 45 dependent reductions to at
+// most 18, with each value computed as the sequential search computes it
+// (the same row terms, the same per-lane order, the same butterfly), so
+// that its alpha is linesearch_seq's bit for bit:
 // - the 12 bracket doublings become one pass: phi' at 2^0 .. 2^11 in 12
 //   accumulators with 12 interleaved butterflies, then hi = 2^m for the
 //   first m whose phi' is not < 0 (the doubling loop's result exactly:
@@ -40,24 +45,26 @@
 //   repeated by every later step, so the search stops there (the step
 //   count can be written out).  The safeguarded search usually ends in
 //   bisections between neighbouring floats, so most envs run all 16.
-// - the curvature term selects its factor without a branch: K7's
-//   `fl > 0 ? |fq| <= fl : ja < 0` compiles to a branch and a
+// - the curvature term selects its factor without a branch: the
+//   sequential `fl > 0 ? |fq| <= fl : ja < 0` compiles to a branch and a
 //   reconvergence point per row, divergent across the lanes, which made
-//   a K7 Newton step cost several bracket rounds;
+//   a sequential Newton step cost several bracket rounds;
 // - the cost pass gives lin_cost's divide the dividend 1 on rows without
 //   friction loss (where it is not used), since a zero dividend sends
 //   the IEEE divide down its slow path, a call per row.
-// The selected values, and so every sum, are K7's (cost: the parent's).
-// linesearch (K7) is off the main path and keeps the sequential search,
-// one reduction per evaluation, as the reference that K5 equals.
-// Contraction: the row terms are written as before (jar + alpha Jp,
-// s += f Jp), so nvcc fuses them into the same FMAs in both.
+// The selected values, and so every sum, are the sequential search's.
+// linesearch_seq keeps that search, one reduction per evaluation, as it
+// ran in linesearch before the fused form took that name.
+// Contraction: the row terms are written once (jar + alpha Jp, s += f
+// Jp), so nvcc fuses them into the same FMAs in every instance.
 //
-// nvcc -Xptxas -v (CUDA 12.8, sm_90a), registers (K5 takes phi' at 12
-// points per pass up to PER = 16 rows a lane, at 6 for PER = 32):
-//   PER       4    10    16    32
-//   K5       56    96   128   255
-//   K7       40    90   116   213
+// nvcc -Xptxas -v (CUDA 12.8, sm_90a), registers (the fused search takes
+// phi' at 12 points per pass up to PER = 16 rows a lane, at 6 for
+// PER = 32):
+//   PER                4    10    16    32
+//   linesearch_cost   56    96   128   255
+//   linesearch        56    96   128   255
+//   linesearch_seq    40    90   116   213
 //   each: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,10 +81,13 @@ __device__ __forceinline__ bool same_bits(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b);
 }
 
-// COST: the fused search of linesearch_cost (K5); otherwise the
-// sequential search of linesearch (K7), the arithmetic both had before.
-template <int PER, bool COST>
-__global__ void linesearch_cost_kernel(
+// The search each instance runs: the fused search with the cost pass
+// (linesearch_cost, K5), without it (linesearch, K7), or the sequential
+// search (linesearch_seq, the reference both equal).
+enum class Search { kFusedCost, kFused, kSequential };
+
+template <int PER, Search MODE>
+__global__ void linesearch_kernel(
     const float* __restrict__ jar_g, const float* __restrict__ Jp_g,
     const float* __restrict__ D_g, const float* __restrict__ floss_g,
     const uint8_t* __restrict__ active_g, const float* __restrict__ c1_g,
@@ -104,7 +114,7 @@ __global__ void linesearch_cost_kernel(
   const float c2 = c2_g[env];
 
   // Row i's force at alpha, f(jar + alpha Jp), of
-  // phi'(alpha) = c1 + alpha c2 - sum f Jp; one expression for K5 and K7.
+  // phi'(alpha) = c1 + alpha c2 - sum f Jp; one expression for every mode.
   auto force = [&](float alpha, int i) {
     const float ja = jar[i] + alpha * Jp[i];
     const float fq = -D[i] * ja;
@@ -114,10 +124,10 @@ __global__ void linesearch_cost_kernel(
   };
 
   float hi = 1.0f;
-  if (!COST) {
-    // K7: the sequential search as it was, one reduction per
-    // evaluation: the bracket doubles hi while phi'(hi) < 0, then each
-    // Newton step reduces phi' and then phi''.
+  if (MODE == Search::kSequential) {
+    // The sequential search, one reduction per evaluation: the bracket
+    // doubles hi while phi'(hi) < 0, then each Newton step reduces phi'
+    // and then phi''.
     auto dphi = [&](float alpha) {
       float s = 0.0f;
 #pragma unroll
@@ -152,9 +162,9 @@ __global__ void linesearch_cost_kernel(
     return;
   }
 
-  // K5's curvature term, the same value as K7's: row i's term of
-  // phi''(alpha) = c2 + sum [row quadratic] D Jp^2.  K7's
-  // `fl > 0 ? |fq| <= fl : ja < 0` compiles to a branch with a
+  // The fused curvature term, the same value as the sequential one's:
+  // row i's term of phi''(alpha) = c2 + sum [row quadratic] D Jp^2.  The
+  // sequential `fl > 0 ? |fq| <= fl : ja < 0` compiles to a branch with a
   // reconvergence point per row, divergent across the lanes; both tests
   // are taken here and the factor selected, without a branch.
   auto curv = [&](float alpha, int i) {
@@ -165,12 +175,12 @@ __global__ void linesearch_cost_kernel(
     return (fl[i] > 0.0f ? q_fric : q_one) * D[i] * Jp[i] * Jp[i];
   };
 
-  // K5.  The doubling loop ends at hi = 2^m, m the first k < bracket_iters
-  // with !(phi'(2^k) < 0), else 2^bracket_iters: once the test fails, hi
-  // stays and each later iteration repeats it.  So phi' is taken at NPT
-  // powers of two at once, each with the same row order and butterfly
-  // as K7's (bit for bit its value), NPT accumulators in one register
-  // pass.
+  // The fused search.  The doubling loop ends at hi = 2^m, m the first
+  // k < bracket_iters with !(phi'(2^k) < 0), else 2^bracket_iters: once
+  // the test fails, hi stays and each later iteration repeats it.  So
+  // phi' is taken at NPT powers of two at once, each with the same row
+  // order and butterfly as the sequential search's (bit for bit its
+  // value), NPT accumulators in one register pass.
   constexpr int NPT = PER <= 16 ? 12 : 6;
   for (int k0 = 0; k0 < bracket_iters; k0 += NPT) {   // hi = 2^k0
     float s[NPT];
@@ -233,6 +243,10 @@ __global__ void linesearch_cost_kernel(
     if (still) break;    // warp-uniform
   }
   if (steps_out != nullptr && lane == 0) steps_out[env] = steps;
+  if (MODE == Search::kFused) {
+    if (lane == 0) alpha_out[env] = alpha;
+    return;
+  }
   // Row cost at the final alpha (solver._cost_rows, active rows only).
   float s = 0.0f;
 #pragma unroll
@@ -255,7 +269,7 @@ __global__ void linesearch_cost_kernel(
   }
 }
 
-template <int PER, bool COST>
+template <int PER, Search MODE>
 int launch(const float* jar, const float* Jp, const float* D,
            const float* floss, const uint8_t* active, const float* c1,
            const float* c2, float* alpha, float* cost, int* steps, int B,
@@ -263,36 +277,36 @@ int launch(const float* jar, const float* Jp, const float* D,
   constexpr int kWarps = 4;
   const int blocks = (B + kWarps - 1) / kWarps;
   if (blocks > 0)
-    linesearch_cost_kernel<PER, COST><<<blocks, 32 * kWarps, 0, stream>>>(
+    linesearch_kernel<PER, MODE><<<blocks, 32 * kWarps, 0, stream>>>(
         jar, Jp, D, floss, active, c1, c2, alpha, cost, steps, B, R,
         bracket_iters, ls_iters);
   return (int)cudaGetLastError();
 }
 
-template <bool COST>
+template <Search MODE>
 int dispatch(const float* jar, const float* Jp, const float* D,
              const float* floss, const uint8_t* active, const float* c1,
              const float* c2, float* alpha, float* cost, int* steps, int B,
              int R, int bracket_iters, int ls_iters, cudaStream_t s) {
   const int per = (R + 31) / 32;
   if (per <= 4)
-    return launch<4, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+    return launch<4, MODE>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
                            steps, B, R, bracket_iters, ls_iters, s);
   if (per <= 10)
-    return launch<10, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+    return launch<10, MODE>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
                             steps, B, R, bracket_iters, ls_iters, s);
   if (per <= 16)
-    return launch<16, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+    return launch<16, MODE>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
                             steps, B, R, bracket_iters, ls_iters, s);
   if (per <= 32)
-    return launch<32, COST>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
+    return launch<32, MODE>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
                             steps, B, R, bracket_iters, ls_iters, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Both return cudaErrorInvalidValue when R exceeds 32 * 32 rows.
+// Each returns cudaErrorInvalidValue when R exceeds 32 * 32 rows.
 // linesearch_cost writes the Newton steps each env ran to `steps` unless
 // it is null.
 extern "C" int linesearch_cost(const float* jar, const float* Jp,
@@ -301,9 +315,9 @@ extern "C" int linesearch_cost(const float* jar, const float* Jp,
                                const float* c2, float* alpha, float* cost,
                                int* steps, int B, int R, int bracket_iters,
                                int ls_iters, void* stream) {
-  return dispatch<true>(jar, Jp, D, floss, active, c1, c2, alpha, cost,
-                        steps, B, R, bracket_iters, ls_iters,
-                        (cudaStream_t)stream);
+  return dispatch<Search::kFusedCost>(jar, Jp, D, floss, active, c1, c2,
+                                      alpha, cost, steps, B, R, bracket_iters,
+                                      ls_iters, (cudaStream_t)stream);
 }
 
 extern "C" int linesearch(const float* jar, const float* Jp, const float* D,
@@ -311,7 +325,18 @@ extern "C" int linesearch(const float* jar, const float* Jp, const float* D,
                           const float* c1, const float* c2, float* alpha,
                           int B, int R, int bracket_iters, int ls_iters,
                           void* stream) {
-  return dispatch<false>(jar, Jp, D, floss, active, c1, c2, alpha, nullptr,
-                         nullptr, B, R, bracket_iters, ls_iters,
-                         (cudaStream_t)stream);
+  return dispatch<Search::kFused>(jar, Jp, D, floss, active, c1, c2, alpha,
+                                  nullptr, nullptr, B, R, bracket_iters,
+                                  ls_iters, (cudaStream_t)stream);
+}
+
+extern "C" int linesearch_seq(const float* jar, const float* Jp,
+                              const float* D, const float* floss,
+                              const uint8_t* active, const float* c1,
+                              const float* c2, float* alpha, int B, int R,
+                              int bracket_iters, int ls_iters, void* stream) {
+  return dispatch<Search::kSequential>(jar, Jp, D, floss, active, c1, c2,
+                                       alpha, nullptr, nullptr, B, R,
+                                       bracket_iters, ls_iters,
+                                       (cudaStream_t)stream);
 }

@@ -105,8 +105,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "chol_solve_fac": [P, P, P, I, I, I, P],
         "chol_factor_solve": [P, P, P, I, I, P],
         "chol_solve_mat": [P, P, P, I, I, I, P],
+        "chol_solve_mat_block": [P, P, P, I, I, I, P],
         "linesearch_cost": [P] * 10 + [I, I, I, I, P],
         "linesearch": [P] * 8 + [I, I, I, I, P],
+        "linesearch_seq": [P] * 8 + [I, I, I, I, P],
         "noslip_sweep": [P] * 9 + [I, I, I, F, P],
     }
     for name, args in sigs.items():

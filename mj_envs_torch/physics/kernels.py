@@ -22,6 +22,13 @@ in CUDA (`mj_envs_torch/csrc/`, built by `_build.py`):
 The eighth kernel, the fused forward kinematics (``fk``, TPU
 `_fk_kernel`), has its wrapper in `kinematics.py` and is counted here.
 
+Two more CUDA kernels are references, not ports: ``linesearch_seq_cuda``
+(the sequential search that ``linesearch`` and ``linesearch_cost`` equal
+bit for bit) and ``chol_solve_mat_block_cuda`` (the block factor-and-solve
+that the Cholesky kernels equal bit for bit).  Only the bit-for-bit
+checks call them; they are not in `KERNELS` and no front end reaches
+them.
+
 Dispatch mirrors the JAX package's `custom_vmap` rule (float32 on the
 accelerator -> kernel): a CUDA float32 tensor launches the kernel, a CPU
 tensor takes the plain version beside it, anything else raises.  Each
@@ -147,18 +154,38 @@ def chol_factor_solve_cuda(H: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def chol_solve_mat_cuda(H: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
-    """K8: X (B, nv, R) = H^-1 G, factor and solve in one launch."""
+def _chol_solve_mat(entry: str, H: torch.Tensor,
+                    G: torch.Tensor) -> torch.Tensor:
     from ._build import load
     B, nv, R = G.shape
     _check("H", H, (B, nv, nv))
     _check("G", G, (B, nv, R))
     X = torch.empty_like(G)
-    err = load().chol_solve_mat(H.data_ptr(), G.data_ptr(), X.data_ptr(),
-                                B, nv, R, _stream(G))
-    _raise_if(err, "chol_solve_mat")
+    err = getattr(load(), entry)(H.data_ptr(), G.data_ptr(), X.data_ptr(),
+                                 B, nv, R, _stream(G))
+    _raise_if(err, entry)
+    return X
+
+
+def chol_solve_mat_cuda(H: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """K8: X (B, nv, R) = H^-1 G, factor and solve in one launch: K2's
+    warp factor, then K3's substitution (K4 at R = 1);
+    nv <= CHOL_SOLVE_MAX_NV."""
+    nv = G.shape[1]
+    if nv > CHOL_SOLVE_MAX_NV:
+        raise ValueError(f"the chol_solve_mat kernel takes nv <= "
+                         f"{CHOL_SOLVE_MAX_NV}; got {nv}")
+    X = _chol_solve_mat("chol_solve_mat", H, G)
     launches["chol_solve_mat"] += 1
     return X
+
+
+def chol_solve_mat_block_cuda(H: torch.Tensor,
+                              G: torch.Tensor) -> torch.Tensor:
+    """The reference for the bit-for-bit checks: X (B, nv, R) = H^-1 G by
+    the block factor and substitution, one block of threads per env (K8
+    before its redesign).  Not counted, and reached from no front end."""
+    return _chol_solve_mat("chol_solve_mat_block", H, G)
 
 
 def _check_linesearch(jar, Jp, D, floss, active, c1, c2):
@@ -195,19 +222,35 @@ def linesearch_cost_cuda(jar, Jp, D, floss, active, c1, c2,
     return alpha, cost
 
 
-def linesearch_cuda(jar, Jp, D, floss, active, c1, c2,
-                    bracket_iters: int = 12, ls_iters: int = 16):
-    """K7: alpha (B,)."""
+def _linesearch_alpha(entry: str, jar, Jp, D, floss, active, c1, c2,
+                      bracket_iters: int, ls_iters: int) -> torch.Tensor:
     from ._build import load
     B, R = _check_linesearch(jar, Jp, D, floss, active, c1, c2)
     alpha = torch.empty_like(c1)
-    err = load().linesearch(
+    err = getattr(load(), entry)(
         jar.data_ptr(), Jp.data_ptr(), D.data_ptr(), floss.data_ptr(),
         active.data_ptr(), c1.data_ptr(), c2.data_ptr(), alpha.data_ptr(),
         B, R, bracket_iters, ls_iters, _stream(jar))
-    _raise_if(err, "linesearch")
+    _raise_if(err, entry)
+    return alpha
+
+
+def linesearch_cuda(jar, Jp, D, floss, active, c1, c2,
+                    bracket_iters: int = 12, ls_iters: int = 16):
+    """K7: alpha (B,), K5's fused search without its cost pass."""
+    alpha = _linesearch_alpha("linesearch", jar, Jp, D, floss, active, c1,
+                              c2, bracket_iters, ls_iters)
     launches["linesearch"] += 1
     return alpha
+
+
+def linesearch_seq_cuda(jar, Jp, D, floss, active, c1, c2,
+                        bracket_iters: int = 12, ls_iters: int = 16):
+    """The reference for the bit-for-bit checks: alpha (B,) by the
+    sequential search, one warp reduction per evaluation (K7 before its
+    redesign).  Not counted, and reached from no front end."""
+    return _linesearch_alpha("linesearch_seq", jar, Jp, D, floss, active,
+                             c1, c2, bracket_iters, ls_iters)
 
 
 def noslip_sweep_cuda(A, a_safe, lo, hi, gate, r0, u0, iters: int,

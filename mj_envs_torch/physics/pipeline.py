@@ -71,12 +71,15 @@ def forward_core(m: Model, qpos, qvel, ctrl, qacc_warmstart,
     nc = ncmax(s)
     contact_full, contacts = C.collide(m, kin, nc)
     rows = CN.make_rows(m, kin, qpos, qvel, contacts)
+    # The f32 solver knobs, read on every call (the JAX package reads
+    # them when it traces).
     solve = S.newton_solve(M, qacc_smooth, rows, qacc_warmstart,
-                           iterations=s.iterations)
+                           iterations=s.iterations,
+                           tol_scale=S.newton_tol_scale())
     if s.noslip_iterations > 0:
         nfl = int(np.sum(s.dof_hasfrictionloss))
         solve = S.noslip(M, rows, solve, nfl, nc, s.noslip_iterations,
-                         M_fac=M_fac)
+                         M_fac=M_fac, tol=S.noslip_tol())
     sensordata = _sensors(m, kin, qpos, act, contacts, solve)
     clipped = contact_full.active.sum(-1) > nc
     return ForwardOut(kin=kin, M=M, qfrc_bias=qfrc_bias,

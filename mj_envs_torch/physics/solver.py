@@ -15,6 +15,7 @@ carry; the kernels still run on the whole batch each iteration.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -27,6 +28,18 @@ from .constraint import Rows, j_matvec, jt_matvec, jtwj
 # relative to the force scale (its f32 default; CUDA path only).
 NEWTON_TOL_SCALE = 300.0
 NOSLIP_TOL = 1e-3
+
+
+def newton_tol_scale() -> float:
+    """The f32 Newton exit in units of eps: MJE_NEWTON_TOL_SCALE, as the
+    JAX package reads it (default NEWTON_TOL_SCALE)."""
+    return float(os.environ.get("MJE_NEWTON_TOL_SCALE", NEWTON_TOL_SCALE))
+
+
+def noslip_tol() -> float:
+    """The f32 noslip sweep's exit tolerance: MJE_NOSLIP_TOL, as the JAX
+    package reads it (default NOSLIP_TOL; 0 runs every sweep)."""
+    return float(os.environ.get("MJE_NOSLIP_TOL", NOSLIP_TOL))
 
 
 def _forces(rows: Rows, jar: torch.Tensor):

@@ -16,9 +16,10 @@ contacts, and then:
    the device's idle share (1 - device time / wall time), also against
    the untraced substep of step 1;
 3. runs the noslip kernel on that substep's own sweep problem at the
-   main path's tol = 1e-3 and at tol = 0 (exactly 20 sweeps): sweeps
-   each env ran before its per-env exit, and how far its forces end from
-   the full 20 sweeps, relative to the env's force scale;
+   main path's tol (MJE_NOSLIP_TOL, default 1e-3) and at tol = 0
+   (exactly 20 sweeps): sweeps each env ran before its per-env exit, and
+   how far its forces end from the full 20 sweeps, relative to the env's
+   force scale;
 4. prints one JSON line with all of it, the card's name and power limit
    beside the numbers.
 """
@@ -65,7 +66,8 @@ def solve_stages(m, d, ctrl, tick):
     rows = CN.make_rows(m, kin, d.qpos, d.qvel, cc)
     tick("make_rows")
     solve = S.newton_solve(M, qacc_smooth, rows, d.qacc_warmstart,
-                           iterations=s.iterations)
+                           iterations=s.iterations,
+                           tol_scale=S.newton_tol_scale())
     tick("newton_solve")
     return kin, act, M, M_fac, cc, rows, solve
 
@@ -77,7 +79,7 @@ def substep_stages(m, d, ctrl, tick):
     kin, act, M, M_fac, cc, rows, solve = solve_stages(m, d, ctrl, tick)
     nfl = int(np.sum(s.dof_hasfrictionloss))
     solve = S.noslip(M, rows, solve, nfl, P.ncmax(s), s.noslip_iterations,
-                     M_fac=M_fac)
+                     M_fac=M_fac, tol=S.noslip_tol())
     tick("noslip")
     P._sensors(m, kin, d.qpos, act, cc, solve)
     tick("sensors")
@@ -99,12 +101,12 @@ def noslip_problem_of(m, d, ctrl) -> S.NoslipProblem:
 
 
 def noslip_exit(prob: S.NoslipProblem, iters: int):
-    """Sweeps per env at tol = 1e-3 on a noslip problem, and
+    """Sweeps per env at the main path's tol on a noslip problem, and
     max |u(tol) - u(0)| / max(max hi, 1) over the envs."""
     prob = [t.contiguous() for t in prob[:7]]
     sweeps = torch.empty(prob[0].shape[0], dtype=torch.int32,
                          device=prob[0].device)
-    u_tol = kernels.noslip_sweep_cuda(*prob, iters, S.NOSLIP_TOL,
+    u_tol = kernels.noslip_sweep_cuda(*prob, iters, S.noslip_tol(),
                                       sweeps=sweeps)
     u_full = kernels.noslip_sweep_cuda(*prob, iters, 0.0)
     scale = torch.clamp(prob[3].max(dim=1).values, min=1.0)

@@ -56,8 +56,8 @@ def _close(a, b, rtol, atol):
 @pytest.mark.parametrize("nv", [1, 30, 32, 33, 36, 63, 64])
 def test_cuda_chol_factor(cuda, nv):
     """K2 (K4's warp factor, written out) against its plain version, and
-    K2 then K3 equal to K8 bit for bit: K2's factor is the block
-    factor's."""
+    K2 then K3 equal to the block factor-and-solve bit for bit: K2's
+    factor is the block factor's."""
     H, g, G = TK.random_spd_problem(np.random.default_rng(9), 64, nv, 5)
     n = TK.launches["chol_factor"]
     (x_k, fac_k), (x_p, fac_p) = _both(TK.chol_solve_factor, (H, g), cuda)
@@ -66,7 +66,7 @@ def test_cuda_chol_factor(cuda, nv):
     _close((x_k, fac_k), (x_p, fac_p), 2e-4, 2e-5)
     Hc, Gc = torch.as_tensor(H).to(cuda), torch.as_tensor(G).to(cuda)
     X3 = TK.chol_solve_fac_cuda(fac_k, Gc)
-    assert torch.equal(X3, TK.chol_solve_mat_cuda(Hc, Gc))
+    assert torch.equal(X3, TK.chol_solve_mat_block_cuda(Hc, Gc))
 
 
 @pytest.mark.cuda
@@ -113,14 +113,18 @@ def test_cuda_chol_solve_fac(cuda, R, nv):
 @pytest.mark.parametrize("nv", [30, 33, 36])
 @pytest.mark.parametrize("R", [1, 129])
 def test_cuda_chol_factor_then_subst_equals_block_solve(cuda, R, nv):
-    """K2's factor then K3 is K8 (factor and substitution in one block)
-    bit for bit: K3 keeps the order of operations of K8's substitution."""
+    """K2's factor then K3 is the block factor-and-solve (one block per
+    env) bit for bit: K3 keeps the order of operations of its
+    substitution; at R = 1 K4 is too."""
     H, _, G = (torch.as_tensor(x).to(cuda) for x in
                TK.random_spd_problem(np.random.default_rng(17), 64, nv, R))
     X3 = TK.chol_solve_fac_cuda(TK.chol_factor_cuda(H), G)
-    X8 = TK.chol_solve_mat_cuda(H, G)
+    X_block = TK.chol_solve_mat_block_cuda(H, G)
     torch.cuda.synchronize()
-    assert torch.equal(X3, X8)
+    assert torch.equal(X3, X_block)
+    if R == 1:
+        x4 = TK.chol_factor_solve_cuda(H, G[..., 0].contiguous())
+        assert torch.equal(x4, X_block[..., 0])
 
 
 @pytest.mark.cuda
@@ -162,7 +166,7 @@ def test_cuda_chol_factor_solve_refuses_nv_65(cuda):
 @pytest.mark.parametrize("R", [33, 296, 300])
 def test_cuda_linesearch_cost(cuda, R):
     """K5 at hammer's 296 rows and at ragged row counts, against the plain
-    version and, bit for bit, against K7's sequential search."""
+    version and, bit for bit, against the sequential search."""
     args = TK.random_linesearch_problem(np.random.default_rng(12), 64, R)
     n = TK.launches["linesearch_cost"]
     (a_k, c_k), (a_p, c_p) = _both(TK.linesearch_cost, args, cuda)
@@ -173,14 +177,15 @@ def test_cuda_linesearch_cost(cuda, R):
     # orders of the plain version); the cost at alpha stays flat.
     _close(a_k, a_p, 0.0, 2e-3 * float(a_p.abs().max()))
     _close(c_k, c_p, 1e-5, 1e-6)
-    assert torch.equal(a_k, TK.linesearch_cuda(
+    assert torch.equal(a_k, TK.linesearch_seq_cuda(
         *(torch.as_tensor(np.asarray(x)).to(cuda) for x in args)))
 
 
 @pytest.mark.cuda
 def test_cuda_linesearch_cost_early_exit(cuda):
     """K5 stops at a Newton step that changes nothing; alpha is still
-    K7's after all 16 steps, bit for bit.  Envs 32..63 have no active
+    the sequential search's after all 16 steps, bit for bit, and K7
+    (the same fused search) agrees.  Envs 32..63 have no active
     row and phi'(a) = c2 (a - (1 + 2^-23)), c2 a power of two: the bracket
     ends at 2, step 1 lands on the root 1 + 2^-23, where phi' is 0, step
     2 bisects [1, 1 + 2^-23] back to 1 (ties to even) and step 3 repeats
@@ -195,6 +200,7 @@ def test_cuda_linesearch_cost_early_exit(cuda):
     steps = torch.zeros(64, dtype=torch.int32, device=cuda)
     a_k, c_k = TK.linesearch_cost_cuda(*dev, 12, 16, steps=steps)
     torch.cuda.synchronize()
+    assert torch.equal(a_k, TK.linesearch_seq_cuda(*dev, 12, 16))
     assert torch.equal(a_k, TK.linesearch_cuda(*dev, 12, 16))
     assert (steps[32:] == 3).all() and (a_k[32:] == 1.0).all()
     assert int(steps.min()) >= 1 and int(steps.max()) <= 16
@@ -287,12 +293,69 @@ def test_cuda_linesearch(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R", [33, 296, 300])
+def test_cuda_linesearch_equals_sequential_search(cuda, R):
+    """K7 (the fused search) is the sequential search and K5's alpha bit
+    for bit, at hammer's 296 rows and at ragged row counts; the
+    reference is not counted as a launch of K7."""
+    args = [torch.as_tensor(np.asarray(x)).to(cuda) for x in
+            TK.random_linesearch_problem(np.random.default_rng(26), 64, R)]
+    n = TK.launches["linesearch"]
+    a_seq = TK.linesearch_seq_cuda(*args)
+    assert TK.launches["linesearch"] == n
+    a_k = TK.linesearch_cuda(*args)
+    a_c, _ = TK.linesearch_cost_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a_k, a_seq) and torch.equal(a_k, a_c)
+
+
+@pytest.mark.cuda
 def test_cuda_chol_solve_mat(cuda):
     H, _, G = TK.random_spd_problem(np.random.default_rng(15), 64, 33, 129)
     n = TK.launches["chol_solve_mat"]
     X_k, X_p = _both(TK.chol_solve_mat, (H, G), cuda)
     assert TK.launches["chol_solve_mat"] == n + 1
     _close(X_k, X_p, 2e-4, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nv", [30, 33, 36, 64])
+@pytest.mark.parametrize("R", [1, 129, 300])
+def test_cuda_chol_solve_mat_equals_block_solve(cuda, R, nv):
+    """K8 (K2's warp factor and K3's substitution in one launch; K4 at
+    R = 1; a grid of blocks over the right-hand sides beyond 256, each
+    factoring H again) is the block factor-and-solve bit for bit, at the
+    tasks' nv and at its limit, with the plain version's tolerance
+    beside it; the reference is not counted as a launch of K8."""
+    H, _, G = TK.random_spd_problem(np.random.default_rng(27), 64, nv, R)
+    Hc, Gc = torch.as_tensor(H).to(cuda), torch.as_tensor(G).to(cuda)
+    n = TK.launches["chol_solve_mat"]
+    X_block = TK.chol_solve_mat_block_cuda(Hc, Gc)
+    assert TK.launches["chol_solve_mat"] == n
+    X_k = TK.chol_solve_mat_cuda(Hc, Gc)
+    torch.cuda.synchronize()
+    assert torch.equal(X_k, X_block)
+    _close(X_k, TK.chol_solve_mat_plain(*_t(H, G)), 2e-4, 2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 129])
+def test_cuda_chol_solve_mat_not_positive_definite_gives_nan(cuda, R):
+    H, _, G = TK.random_spd_problem(np.random.default_rng(28), 8, 33, R)
+    H[3] = -H[3]
+    X = TK.chol_solve_mat_cuda(*(torch.as_tensor(x).to(cuda) for x in (H, G)))
+    torch.cuda.synchronize()
+    assert torch.isnan(X[3]).all()
+    assert torch.isfinite(X[torch.arange(8, device=cuda) != 3]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_chol_solve_mat_refuses_nv_65(cuda):
+    H, _, G = TK.random_spd_problem(np.random.default_rng(28), 4, 65, 3)
+    n = TK.launches["chol_solve_mat"]
+    with pytest.raises(ValueError, match=str(TK.CHOL_SOLVE_MAX_NV)):
+        TK.chol_solve_mat(*(torch.as_tensor(x).to(cuda) for x in (H, G)))
+    assert TK.launches["chol_solve_mat"] == n
 
 
 @pytest.mark.cuda

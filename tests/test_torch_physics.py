@@ -423,3 +423,56 @@ def test_forward_core_and_step(world):
     for f in ("qacc", "sensordata", "efc_force"):
         close(getattr(fwd, f), getattr(out_j, f), f"forward {f}", **NOSLIP)
     assert torch.equal(fwd.qpos, d.qpos) and torch.equal(fwd.qvel, d.qvel)
+
+
+def test_newton_tol_scale_knob(world, monkeypatch):
+    """MJE_NEWTON_TOL_SCALE acts on the port's f32 substep as on the JAX
+    package's.  At 1e5 (a Newton exit at ~1.2 % of the cost) the port's
+    step matches a JAX step traced after the variable was set, at the
+    bounds of test_forward_core_and_step, and moves qacc by more than
+    those bounds from the port's step at the default.  The states are
+    the world's with qvel + 3 N(0, 1), so that Newton takes several
+    iterations (from the world's own states one iteration nearly solves
+    the problem, and the exit moves qacc by a tenth of the bounds)."""
+    qvel = np.asarray(world["d"].qvel) + 3.0 * np.random.default_rng(
+        5).standard_normal(world["d"].qvel.shape).astype(np.float32)
+    d_j = world["d"].replace(qvel=jax.numpy.asarray(qvel))
+    m = world["tm"]
+    d = _tdata(d_j)
+    ctrl = tt(world["ctrl"])
+    monkeypatch.delenv("MJE_NEWTON_TOL_SCALE", raising=False)
+    default = TP.step(m, d, ctrl)
+    monkeypatch.setenv("MJE_NEWTON_TOL_SCALE", "1e5")
+    out = TP.step(m, d, ctrl)
+    jm = world["jm"]
+    # A new jit traces anew, and so reads the variable (world["jstep"]
+    # holds the default).
+    out_j = jax.jit(jax.vmap(lambda var, dd, c: JP.step(
+        j_apply_var(jm, var), dd, c)))(world["var"], d_j, world["ctrl"])
+    for f in ("qacc", "efc_force", "sensordata"):
+        close(getattr(out, f), getattr(out_j, f), f, **NOSLIP)
+    for f in ("qpos", "qvel"):
+        close(getattr(out, f), getattr(out_j, f), f)
+    assert not np.allclose(out.qacc.numpy(), default.qacc.numpy(),
+                           **NOSLIP), "the knob did not move the port's qacc"
+
+
+def test_noslip_tol_knob(world, monkeypatch):
+    """MJE_NOSLIP_TOL reaches the noslip sweep through forward_core (on
+    the CPU its plain version runs the fixed sweeps and ignores it, as
+    the JAX package's CPU path does)."""
+    d = _tdata(world["d"])
+    ctrl = tt(world["ctrl"])
+    seen = []
+    sweep = TKR.noslip_sweep
+
+    def spy(A, a_safe, lo, hi, gate, r0, u0, iters, tol=0.0):
+        seen.append(tol)
+        return sweep(A, a_safe, lo, hi, gate, r0, u0, iters, tol)
+
+    monkeypatch.setattr(TKR, "noslip_sweep", spy)
+    for value in ("0", "5e-3"):
+        monkeypatch.setenv("MJE_NOSLIP_TOL", value)
+        TP.forward_core(world["tm"], d.qpos, d.qvel, ctrl, d.qacc_warmstart,
+                        d.qfrc_applied)
+    assert seen == [0.0, 5e-3]

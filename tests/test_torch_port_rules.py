@@ -93,3 +93,53 @@ def test_unported_task_and_dtype_raise():
         assert name in str(err.value)
     with pytest.raises(NotImplementedError):
         envs.make("hammer-v0", device="cpu", dtype=torch.float64)
+
+
+REFERENCES = ("linesearch_seq", "chol_solve_mat_block")
+
+
+def _mentions(node):
+    """The identifiers and string constants under `node` that name a
+    reference kernel, as (what, text)."""
+    for n in ast.walk(node):
+        for what, text in (("name", getattr(n, "id", None)),
+                           ("name", getattr(n, "attr", None)),
+                           ("name", getattr(n, "name", None)),
+                           ("string", n.value if isinstance(n, ast.Constant)
+                            and isinstance(n.value, str) else None)):
+            if isinstance(text, str) and any(r in text for r in REFERENCES):
+                yield what, text
+
+
+def test_reference_kernels_stay_off_the_port_path():
+    """The reference kernels (the sequential linesearch and the block
+    factor-and-solve, which the bit-for-bit checks hold the redesigned
+    kernels against) are reached from no module of the port: only
+    `physics/kernels.py` defines their wrappers and nothing else there
+    calls them, `_build.py` only binds their C entries by name, and no
+    other file of the port names them.  Read from the sources."""
+    from mj_envs_torch.physics import kernels
+    assert not set(REFERENCES) & set(kernels.KERNELS)
+    wrappers = {f"{r}_cuda" for r in REFERENCES}
+    pkg = os.path.join(ROOT, "mj_envs_torch")
+    for path in _port_files():
+        rel = os.path.relpath(path, pkg)
+        if rel.startswith(".."):
+            continue                       # chip_smoke.py runs the checks
+        with open(path) as f:
+            src = f.read()
+        tree = ast.parse(src, filename=path)
+        if rel == os.path.join("physics", "kernels.py"):
+            defined = {n.name for n in tree.body
+                       if isinstance(n, ast.FunctionDef)}
+            assert wrappers <= defined
+            doc = ast.get_docstring(tree, clean=False)
+            for n in tree.body:
+                if isinstance(n, ast.FunctionDef) and n.name in wrappers:
+                    continue
+                hits = [m for m in _mentions(n) if m[1] != doc]
+                assert not hits, (rel, getattr(n, "name", None), hits)
+        elif rel == os.path.join("physics", "_build.py"):
+            assert {w for w, _ in _mentions(tree)} == {"string"}, rel
+        else:
+            assert not any(r in src for r in REFERENCES), rel
