@@ -26,6 +26,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
    card and on the CPU (plain versions) from the same state and actions;
    on the hammer card state, noslip without the mass-matrix factor (its
    own factor-and-solve kernel) against noslip with it;
+4b. the options and the float64 path: 8 hammer envs x 2 steps in
+   float64 on the card against the CPU (no kernel may launch); the same
+   in float32 under MJE_JBASE=1 against the CPU and against the card's
+   dense default (K3, K5 and K6 must launch); `kinematics_parallel`
+   against the FK kernel on all four trees, and a step under
+   MJE_FK_IMPL=parallel launching no FK kernel; `set_physics_state` on
+   8 envs, card against CPU; a 512-env hammer step's time at the
+   default and under each option; every knob as it was before;
 5. the main path: hammer-v0 `VectorEnv(4096, chunk_size=512)`, reset and
    5 auto-reset steps, then door, pen and relocate at the same size for
    2 steps each, every kernel's launch count set to 0 before each task's
@@ -567,37 +575,207 @@ def noslip_without_factor(TK, envs, apply_var, st, dev):
                   getattr(ns_mat, f), getattr(ns_fac, f))
 
 
+KNOBS = ("MJE_NEWTON_TOL_SCALE", "MJE_NOSLIP_TOL", "MJE_FK_IMPL",
+         "MJE_JBASE", "MJE_NO_FK_KERNEL")
+F64_TOL = dict(rtol=1e-8, atol=1e-8)   # float64, card vs CPU, 2 steps
+
+
+class knobs:
+    """Set (value) or unset (None) environment variables inside a `with`
+    block, restoring what was there after it."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_pair(envs, VectorEnv, task, devs, n=8, steps=2, dtype=torch.float32,
+             seed=3):
+    """`n` envs of `task` on each device of `devs`, reset on the first
+    (the others get its state) and stepped `steps` times with the same
+    seeded actions; the final states, in the order of `devs`."""
+    states, st0 = [], None
+    for dev in devs:
+        env = envs.make(task, device=dev, dtype=dtype)
+        venv = VectorEnv(env, n)
+        st = venv.reset(seed=seed)          # seeds the reset generator
+        st0 = st if st0 is None else st0
+        st = st0.map(lambda x: x.to(env.device))
+        rng = np.random.default_rng(seed)
+        for _ in range(steps):
+            a = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, env.nu)),
+                                dtype=dtype, device=env.device)
+            st = venv.step(st, a)
+        states.append(st)
+    return states
+
+
+def state_diff(a, b, tol, what):
+    """Fail unless the states' obs, reward, qpos and qvel agree within
+    `tol` (assert_close's rtol / atol); returns (max abs diff, largest
+    share of the tolerance used, its field)."""
+    worst, use = 0.0, (0.0, "")
+    for name in ("obs", "reward", "qpos", "qvel"):
+        src_a, src_b = (a.data, b.data) if name.startswith("q") else (a, b)
+        x, y = getattr(src_a, name).cpu(), getattr(src_b, name).cpu()
+        d = (x.double() - y.double()).abs()
+        worst = max(worst, d.max().item())
+        use = max(use, ((d / (tol["atol"] + tol["rtol"] * y.double().abs()))
+                        .max().item(), name))
+        torch.testing.assert_close(x, y, **tol, msg=lambda m: f"{what}: {m}")
+    for name in ("done", "truncated", "nan_resets", "contact_clips"):
+        check(torch.equal(getattr(a, name).cpu(), getattr(b, name).cpu()),
+              f"{what}: {name} differs")
+    return worst, use
+
+
 def small_reference(envs, VectorEnv, dev, task, n=8, steps=2):
     """Phase 4: the card path against the CPU plain path from one state
     with the same actions (tolerances of tests/test_torch_hammer.py);
     returns the card state."""
-    env_k = envs.make(task, device=dev)
-    env_p = envs.make(task, device="cpu")
-    vk, vp = VectorEnv(env_k, n), VectorEnv(env_p, n)
-    st_k = vk.reset(seed=3)
-    vp.reset(seed=3)
-    st_p = st_k.map(lambda x: x.cpu())
-    rng = np.random.default_rng(3)
-    for _ in range(steps):
-        a = rng.uniform(-1.0, 1.0, (n, env_k.nu)).astype(np.float32)
-        st_k = vk.step(st_k, torch.as_tensor(a, device=dev))
-        st_p = vp.step(st_p, torch.as_tensor(a))
-    worst, use = 0.0, (0.0, "")
-    for name in ("obs", "reward", "qpos", "qvel"):
-        src_k, src_p = (st_k.data, st_p.data) if name.startswith("q") \
-            else (st_k, st_p)
-        k, p = getattr(src_k, name).cpu(), getattr(src_p, name)
-        d = (k - p).abs()
-        worst = max(worst, d.max().item())
-        use = max(use, ((d / (2e-3 + 1e-3 * p.abs())).max().item(), name))
-        torch.testing.assert_close(k, p, rtol=1e-3, atol=2e-3)
-    for name in ("done", "truncated", "nan_resets", "contact_clips"):
-        check(torch.equal(getattr(st_k, name).cpu(), getattr(st_p, name)),
-              f"{name}: card and CPU differ")
+    st_k, st_p = run_pair(envs, VectorEnv, task, (dev, "cpu"), n, steps)
+    worst, use = state_diff(st_k, st_p, dict(rtol=1e-3, atol=2e-3),
+                            f"{task} card vs CPU")
     log(f"  {task}: {n} envs x {steps} steps, card vs CPU: max abs diff "
         f"{worst:.3e}; largest share of the tolerance (rtol 1e-3, atol "
         f"2e-3) used: {use[0]:.3f} ({use[1]})")
     return st_k
+
+
+def options_phase(TK, envs, VectorEnv, random_actions, apply_var, dev):
+    """Phase 4b: float64 on the card (no kernel), MJE_JBASE=1,
+    MJE_FK_IMPL=parallel, `set_physics_state`, each option's 512-env
+    hammer step time beside the default's; every knob as it was after."""
+    from mj_envs_torch.physics import kinematics as K
+    before = {k: os.environ.get(k) for k in KNOBS}
+    f32 = dict(rtol=1e-3, atol=2e-3)
+
+    # float64: the plain versions on the card, no launch.
+    TK.reset_launches()
+    st_k, st_p = run_pair(envs, VectorEnv, "hammer-v0", (dev, "cpu"),
+                          dtype=torch.float64)
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in TK.launches.items() if n}
+    worst, use = state_diff(st_k, st_p, F64_TOL, "float64 card vs CPU")
+    log(f"  float64 hammer 8 envs x 2 steps, card vs CPU: max abs diff "
+        f"{worst:.3e}; largest share of the tolerance (rtol "
+        f"{F64_TOL['rtol']:g}, atol {F64_TOL['atol']:g}) used: {use[0]:.3f} "
+        f"({use[1]}); kernel launches {launched or 0}")
+    check(st_k.data.qpos.dtype == torch.float64, "float64 state changed dtype")
+    check(not launched, f"a float64 step launched kernels: {launched}")
+
+    # MJE_JBASE=1: card vs CPU with the knob, and against the card's
+    # dense default.
+    with knobs(MJE_JBASE="1"):
+        TK.reset_launches()
+        jb_k, jb_p = run_pair(envs, VectorEnv, "hammer-v0", (dev, "cpu"))
+        torch.cuda.synchronize()
+        jb_launches = dict(TK.launches)
+    dense_k, = run_pair(envs, VectorEnv, "hammer-v0", (dev,))
+    worst, use = state_diff(jb_k, jb_p, f32, "MJE_JBASE=1 card vs CPU")
+    log(f"  MJE_JBASE=1 hammer 8 envs x 2 steps, card vs CPU: max abs diff "
+        f"{worst:.3e}, share {use[0]:.3f} ({use[1]})")
+    worst, use = state_diff(jb_k, dense_k, f32,
+                            "MJE_JBASE=1 vs the dense default")
+    log(f"  MJE_JBASE=1 vs the dense default on the card: max abs diff "
+        f"{worst:.3e}, share {use[0]:.3f} ({use[1]}); launches "
+        f"{json.dumps(jb_launches)}")
+    for name in ("chol_solve_fac", "linesearch_cost", "noslip_sweep"):
+        check(jb_launches[name] > 0, f"MJE_JBASE=1: {name} not launched")
+
+    # MJE_FK_IMPL=parallel: the pointer-doubling FK against K1 on each
+    # tree (phase 3's FK inputs and tolerance); with the knob a step
+    # launches no fk.
+    rng = np.random.default_rng(1)
+    for task in TASKS:
+        env = envs.make(task, device=dev)
+        m = apply_var(env.model, VectorEnv(env, B_CHUNK).reset(seed=2).var)
+        qpos = env.model.qpos0 + 0.3 * torch.as_tensor(
+            rng.standard_normal((B_CHUNK, env.nq)), dtype=torch.float32,
+            device=dev)
+        k1, par = K.kinematics(m, qpos), K.kinematics_parallel(m, qpos)
+        errs = []
+        for f in K.Kin._fields:
+            a, b = getattr(par, f), getattr(k1, f)
+            e = (a.double() - b.double()).abs().max().item()
+            errs.append((e / max(1.0, b.abs().max().item()), e, f))
+        rel, e, field = max(errs)
+        log(f"  kinematics_parallel vs fk (K1), {task}: max_abs_err {e:.3e}"
+            f" ({field}; {rel:.3e} of max(1, |x|), tol {FK_TOL:g})")
+        check(rel <= FK_TOL, f"kinematics_parallel {task} {field}: "
+              f"{rel:.3e} > {FK_TOL}")
+    with knobs(MJE_FK_IMPL="parallel"):
+        TK.reset_launches()
+        run_pair(envs, VectorEnv, "hammer-v0", (dev,), steps=1)
+        torch.cuda.synchronize()
+        par_launches = dict(TK.launches)
+    log(f"  MJE_FK_IMPL=parallel step launches {json.dumps(par_launches)}")
+    check(par_launches["fk"] == 0, "MJE_FK_IMPL=parallel launched fk")
+    check(par_launches["linesearch_cost"] > 0,
+          "MJE_FK_IMPL=parallel: the solver kernels did not run")
+
+    # set_physics_state on the card against the CPU.
+    env_k = envs.make("hammer-v0", device=dev)
+    env_p = envs.make("hammer-v0", device="cpu")
+    st_p = VectorEnv(env_p, 8).reset(seed=4)
+    st_k = st_p.map(lambda x: x.to(dev))
+    rng = np.random.default_rng(4)
+    qpos = (st_p.data.qpos.numpy() + 0.05 * rng.standard_normal(
+        (8, env_p.nq))).astype(np.float32)
+    qvel = (0.5 * rng.standard_normal((8, env_p.nv))).astype(np.float32)
+    out_k = env_k.set_physics_state(st_k, qpos, qvel)
+    out_p = env_p.set_physics_state(st_p, qpos, qvel)
+    got = env_k.get_env_state(out_k)
+    check(np.array_equal(got["qpos"], qpos) and np.array_equal(
+        got["qvel"], qvel), "get_env_state after set_physics_state")
+    torch.testing.assert_close(out_k.obs.cpu(), out_p.obs, **f32)
+    qa_k, qa_p = out_k.data.qacc.cpu().double(), out_p.data.qacc.double()
+    share = ((qa_k - qa_p).abs().max() / qa_p.abs().max()).item()
+    log(f"  set_physics_state hammer 8 envs, card vs CPU: obs max abs diff "
+        f"{(out_k.obs.cpu() - out_p.obs).abs().max().item():.3e}; qacc max "
+        f"abs diff {share:.3e} of its scale (tol 1e-3)")
+    check(share <= 1e-3, "set_physics_state: card and CPU qacc differ")
+
+    # Each option's 512-env hammer step time, beside the default's.
+    def step_ms(reps=3):
+        env = envs.make("hammer-v0", device=dev)
+        venv = VectorEnv(env, B_CHUNK)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        st = venv.step(venv.reset(seed=0),
+                       random_actions(gen, B_CHUNK, env.nu, dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            st = venv.step(st, random_actions(gen, B_CHUNK, env.nu, dev))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    times = {"default": step_ms()}
+    for name, val in (("MJE_JBASE", "1"), ("MJE_FK_IMPL", "parallel")):
+        with knobs(**{name: val}):
+            times[f"{name}={val}"] = step_ms()
+    times["default (again)"] = step_ms()
+    for name, ms in times.items():
+        log(f"  hammer {B_CHUNK}-env step, {name}: {ms:.1f} ms "
+            f"(3 steps after one warm-up)")
+    after = {k: os.environ.get(k) for k in KNOBS}
+    log(f"  knobs before phase 5: {json.dumps(after)}")
+    check(after == before, f"knobs not restored: {after} != {before}")
+    return times
 
 
 def main_path(TK, envs, VectorEnv, random_actions, dev, task, num_envs,
@@ -681,6 +859,10 @@ def main():
         st = small_reference(envs, VectorEnv, dev, task)
         if task == "hammer-v0":
             noslip_without_factor(TK, envs, _apply_var, st, dev)
+
+    log("[4b] options: float64, MJE_JBASE=1, MJE_FK_IMPL=parallel, "
+        "set_physics_state:")
+    options_phase(TK, envs, VectorEnv, random_actions, _apply_var, dev)
 
     log(f"[5] main path: {NUM_ENVS} envs, chunk {B_CHUNK}, each task:")
     rates, total = {}, dict.fromkeys(TK.KERNELS, 0)

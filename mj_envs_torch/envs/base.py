@@ -136,9 +136,10 @@ class AdroitEnv:
             raise RuntimeError(
                 "no CUDA device: the port runs on the card by default; "
                 "pass device='cpu' to run the plain CPU path")
-        if dtype != torch.float32:
+        if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
-                "the port runs the float32 physics path only")
+                "the port runs float32 (the card's kernel path) and float64 "
+                f"(the oracle-parity path) only; got {dtype}")
         self.variation_type = variation_type
         self.dtype = dtype
         self.device = device
@@ -278,6 +279,25 @@ class AdroitEnv:
             nan_resets=state.nan_resets + (~finite).to(torch.int32),
             contact_clips=st.contact_clips)
         return merged, st
+
+    # -- parity/debug API (get_env_state/set_env_state analogue) --------------
+
+    def get_env_state(self, state: EnvState) -> Dict[str, np.ndarray]:
+        """Host copies of the physics state: qpos (B, nq), qvel (B, nv)."""
+        return dict(qpos=state.data.qpos.detach().cpu().numpy().copy(),
+                    qvel=state.data.qvel.detach().cpu().numpy().copy())
+
+    def set_physics_state(self, state: EnvState, qpos, qvel) -> EnvState:
+        """set_state + forward (reference `set_env_state`): qpos (B, nq)
+        and qvel (B, nv), arrays or tensors, go to this env's device and
+        dtype; the caches, qacc and obs are recomputed at them with the
+        envs' own model fields."""
+        model = _apply_var(self.model, state.var)
+        d = state.data.replace(
+            qpos=torch.as_tensor(qpos).to(self.device, self.dtype),
+            qvel=torch.as_tensor(qvel).to(self.device, self.dtype))
+        d = pipeline.forward(model, d)
+        return state.replace(data=d, obs=self._obs(model, d))
 
     # -- success metric (reference `evaluate_success`) -------------------------
 

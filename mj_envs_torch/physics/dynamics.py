@@ -2,7 +2,9 @@
 (`mj_envs_tpu/physics/dynamics.py`), batch-first.
 
 Everything is in the per-tree com frame from `kinematics.kinematics` and
-reduced with static-mask matmuls over the env axis.
+reduced with static-mask matmuls over the env axis.  The 6-wide
+contractions are broadcast-multiply-sums in float32 and einsums in
+float64, the JAX package's two op sets.
 """
 from __future__ import annotations
 
@@ -31,8 +33,13 @@ def crb(m: Model, kin: Kin) -> torch.Tensor:
     subtree = _mask(s.subtree_mask, dtype, dev)                 # (nb, nb)
     icomp = torch.einsum("bd,ndij->nbij", subtree, kin.cinert)  # (B,nb,6,6)
     jb = torch.as_tensor(s.jnt_bodyid, dtype=torch.long, device=dev)
-    # F[j] = Icomp[body(j)] @ cdof[j]
-    F = (icomp[:, jb] * kin.cdof[:, :, None, :]).sum(-1)        # (B, nv, 6)
+    # F[j] = Icomp[body(j)] @ cdof[j]: a broadcast-multiply-sum in
+    # float32, the JAX package's einsum in float64 (its oracle-parity op
+    # set).
+    if dtype == torch.float64:
+        F = torch.einsum("njik,njk->nji", icomp[:, jb], kin.cdof)
+    else:
+        F = (icomp[:, jb] * kin.cdof[:, :, None, :]).sum(-1)    # (B, nv, 6)
     M = torch.matmul(kin.cdof, F.transpose(-1, -2))             # (B, nv, nv)
     # M[i, j] is only valid where dof i is on dof j's path (i <= j):
     # keep that triangle and mirror it.
@@ -62,8 +69,14 @@ def bias_force(m: Model, kin: Kin, vel: Vel, qvel: torch.Tensor
     a0 = torch.cat([torch.zeros(3, dtype=dtype, device=dev),
                     -torch.as_tensor(s.gravity, dtype=dtype, device=dev)])
     cacc = a0 + torch.matmul(body_dofmask, vel.cdof_dot * qvel[..., None])
-    Iv = (kin.cinert * vel.cvel[..., None, :]).sum(-1)
-    Ia = (kin.cinert * cacc[..., None, :]).sum(-1)
+    # Per-body bias force f = I a + v x* (I v); float64 takes the JAX
+    # package's einsum.
+    if dtype == torch.float64:
+        Iv = torch.einsum("nbij,nbj->nbi", kin.cinert, vel.cvel)
+        Ia = torch.einsum("nbij,nbj->nbi", kin.cinert, cacc)
+    else:
+        Iv = (kin.cinert * vel.cvel[..., None, :]).sum(-1)
+        Ia = (kin.cinert * cacc[..., None, :]).sum(-1)
     f = Ia + maths.force_cross(vel.cvel, Iv)                    # (B, nb, 6)
     fsum = torch.matmul(body_dofmask.T, f)                      # (B, nv, 6)
     return (kin.cdof * fsum).sum(-1)

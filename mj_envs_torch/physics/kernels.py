@@ -29,10 +29,14 @@ that the Cholesky kernels equal bit for bit).  Only the bit-for-bit
 checks call them; they are not in `KERNELS` and no front end reaches
 them.
 
-Dispatch mirrors the JAX package's `custom_vmap` rule (float32 on the
-accelerator -> kernel): a CUDA float32 tensor launches the kernel, a CPU
-tensor takes the plain version beside it, anything else raises.  Each
-launch adds one to `launches[name]`.
+Dispatch mirrors the JAX package's `custom_vmap` rule (`use_pallas =
+dtype == float32 and backend == "tpu"`): a CUDA float32 tensor launches
+the kernel, a CPU tensor takes the plain version beside it.  A float64
+tensor takes the plain version on any device, the card included, and
+launches no kernel: the JAX package dispatches its kernels for float32
+only, and its float64 oracle-parity path never reaches one.  Any other
+dtype on the card (float16, bfloat16) raises.  Each launch adds one to
+`launches[name]`.
 
 The factor layout is the JAX package's on every backend: fac[b, k, :] is
 column k of L (so fac is L^T, zero below the diagonal).
@@ -61,7 +65,8 @@ _MASKS = (torch.bool, torch.uint8)   # linesearch's `active` rows
 
 
 def _on_card(*ts: torch.Tensor) -> bool:
-    """True: launch the CUDA kernel; False: run the plain version."""
+    """True: launch the CUDA kernel; False: run the plain version (on
+    the CPU, and for float64 on any device)."""
     dev = ts[0].device
     if any(t.device != dev for t in ts):
         raise ValueError("kernel inputs lie on different devices: "
@@ -69,10 +74,14 @@ def _on_card(*ts: torch.Tensor) -> bool:
     if dev.type == "cpu":
         return False
     floats = [t for t in ts if t.dtype not in _MASKS]
-    if dev.type == "cuda" and all(t.dtype == torch.float32 for t in floats):
-        return True
+    if dev.type == "cuda":
+        if all(t.dtype == torch.float32 for t in floats):
+            return True
+        if all(t.dtype == torch.float64 for t in floats):
+            return False
     raise TypeError("the CUDA kernels take float32 tensors on a CUDA "
-                    f"device; got {[t.dtype for t in ts]} on {dev}")
+                    "device (float64 runs the plain versions); got "
+                    f"{[t.dtype for t in ts]} on {dev}")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:

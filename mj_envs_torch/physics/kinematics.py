@@ -1,10 +1,20 @@
 """Forward kinematics and com-frame quantities, batch-first
 (`mj_envs_tpu/physics/kinematics.py`).
 
-`kinematics(m, qpos)` is the front end, with the rule of the solver
-kernels (`kernels._on_card`): a CUDA float32 `qpos` launches the fused FK
-kernel (`csrc/fk.cu`, the TPU's `fk_kernel._fk_kernel`), a CPU tensor runs
-`kinematics_plain`, anything else raises.
+`kinematics(m, qpos)` is the front end.  For a float32 `qpos` it reads
+the JAX package's FK options on every call (`fk_impl`):
+
+* ``MJE_FK_IMPL=pallas`` (the default): the fused FK kernel
+  (`csrc/fk.cu`, the TPU's `fk_kernel._fk_kernel`) on a CUDA tensor,
+  `kinematics_plain` on a CPU one; ``MJE_NO_FK_KERNEL=1`` turns it into
+  ``ref``;
+* ``MJE_FK_IMPL=parallel``: `kinematics_parallel`, the pointer-doubling
+  FK, in plain torch ops on either device;
+* ``MJE_FK_IMPL=ref`` (or any other value): `kinematics_plain`.
+
+Any other dtype runs `kinematics_plain` and launches nothing (the
+float64 oracle-parity path; the rule of `kernels._on_card`, which
+raises for a dtype the card's path does not take).
 
 `kinematics_plain` is `_kinematics_ref` batched: the body tree is walked
 in Python (nbody <= ~33 in this suite) and every per-body op runs on all
@@ -12,6 +22,7 @@ envs at once; subtree sums are matmuls against static masks.
 """
 from __future__ import annotations
 
+import os
 import weakref
 from typing import NamedTuple
 
@@ -80,14 +91,21 @@ def kinematics_plain(m: Model, qpos: torch.Tensor) -> Kin:
 
     xpos = torch.stack(xpos, dim=1)
     xquat = torch.stack(xquat, dim=1)
-    xmat = maths.quat_to_mat(xquat)
     if s.njnt:
         xanchor = torch.stack(xanchor, dim=1)
         xaxis = torch.stack(xaxis, dim=1)
     else:
         xanchor = torch.zeros(B, 0, 3, dtype=dtype, device=dev)
         xaxis = torch.zeros(B, 0, 3, dtype=dtype, device=dev)
+    return _frames(m, xpos, xquat, xanchor, xaxis)
 
+
+def _frames(m: Model, xpos, xquat, xanchor, xaxis) -> Kin:
+    """Everything FK derives from the body and joint poses: frames,
+    inertial, geom and site poses, subtree com, cdof and cinert."""
+    s = m.spec
+    dtype, dev = xpos.dtype, xpos.device
+    xmat = maths.quat_to_mat(xquat)
     xipos = xpos + maths.quat_rot(xquat, m.body_ipos)
     ximat = maths.quat_to_mat(maths.quat_mul(xquat, m.body_iquat))
 
@@ -116,9 +134,16 @@ def kinematics_plain(m: Model, qpos: torch.Tensor) -> Kin:
     cdof = torch.cat([ang, lin], dim=-1)
 
     # Spatial inertia per body at its tree-root com, world axes:
-    # R diag(I) R^T as a broadcast-multiply-sum.
-    tmp = ximat * m.body_inertia[..., None, :]
-    inert_world = (tmp[..., :, None, :] * ximat[..., None, :, :]).sum(-1)
+    # R diag(I) R^T, a broadcast-multiply-sum in float32 and the JAX
+    # package's einsum in float64 (its oracle-parity op set).
+    if dtype == torch.float64:
+        inert_world = torch.einsum(
+            "...bij,...bj,...bkj->...bik", ximat,
+            m.body_inertia.expand(ximat.shape[:-1]), ximat)
+    else:
+        tmp = ximat * m.body_inertia[..., None, :]
+        inert_world = (tmp[..., :, None, :]
+                       * ximat[..., None, :, :]).sum(-1)
     cinert = maths.spatial_inertia(mass, inert_world, xipos - root_com)
 
     return Kin(xpos=xpos, xquat=xquat, xmat=xmat, xipos=xipos,
@@ -127,6 +152,129 @@ def kinematics_plain(m: Model, qpos: torch.Tensor) -> Kin:
                xanchor=xanchor, xaxis=xaxis,
                subtree_com=subtree_com, root_com=root_com,
                cdof=cdof, cinert=cinert)
+
+
+# ---------------------------------------------------------------------------
+# Pointer-doubling FK (MJE_FK_IMPL=parallel)
+# ---------------------------------------------------------------------------
+
+# Per ModelSpec: the static tables of `kinematics_parallel`.
+_PAR_TABLES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def fk_parallel_tables(s):
+    """(parent, jslot, maxj, body_of_jnt, slot_of_jnt, anc): each body's
+    joint slots (njnt marks an empty one), each joint's body and slot,
+    and the 2^k-ancestor tables of the body tree (`_fk_parallel_static`
+    of the JAX package)."""
+    if s in _PAR_TABLES:
+        return _PAR_TABLES[s]
+    parent = np.asarray(s.body_parentid, dtype=np.int64).copy()
+    nbody, njnt = int(s.nbody), int(s.njnt)
+    jnts_of = [[] for _ in range(nbody)]
+    for j in range(njnt):
+        jnts_of[int(s.jnt_bodyid[j])].append(j)
+    maxj = max((len(x) for x in jnts_of), default=0)
+    jslot = np.full((nbody, max(1, maxj)), njnt, dtype=np.int64)
+    slot_of_jnt = np.zeros(njnt, dtype=np.int64)
+    for b, js in enumerate(jnts_of):
+        for t, j in enumerate(js):
+            jslot[b, t] = j
+            slot_of_jnt[j] = t
+    body_of_jnt = np.asarray(s.jnt_bodyid, dtype=np.int64)
+    depth = np.zeros(nbody, dtype=np.int64)
+    for b in range(1, nbody):
+        depth[b] = depth[parent[b]] + 1
+    max_depth = int(depth.max()) if nbody > 1 else 1
+    rounds = 0
+    while (1 << rounds) < max_depth:
+        rounds += 1
+    anc = []
+    a = parent.copy()
+    a[0] = 0
+    for _ in range(rounds):
+        anc.append(a.copy())
+        a = a[a]
+    out = (parent, jslot, maxj, body_of_jnt, slot_of_jnt, tuple(anc))
+    _PAR_TABLES[s] = out
+    return out
+
+
+def kinematics_parallel(m: Model, qpos: torch.Tensor) -> Kin:
+    """Forward kinematics for qpos (B, nq) with a log-depth dependency
+    graph (`_kinematics_parallel` of the JAX package), plain PyTorch:
+    (a) every joint's local transform at once; (b) each body's joint
+    chain folded in `maxj` masked rounds; (c) the body tree composed by
+    pointer doubling over the static 2^k-ancestor tables (4 rounds on
+    the Adroit trees).  The same formulas as `kinematics_plain`,
+    associated differently, with one quaternion normalization at the
+    end instead of one per hinge: float32 rounding apart from it."""
+    s = m.spec
+    dtype, dev = qpos.dtype, qpos.device
+    B = qpos.shape[0]
+    parent, jslot, maxj, body_of_jnt, slot_of_jnt, anc = \
+        fk_parallel_tables(s)
+    njnt, nbody = s.njnt, s.nbody
+
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.long, device=dev)
+
+    # (a) per-joint local transforms (parent frame -> after the joint):
+    # a hinge about its anchor jnt_pos, p = jp - R(rq) jp; a slide
+    # p = axis q.  A sentinel identity row stands for an empty slot.
+    qj = qpos[:, idx(s.jnt_qposadr)]                          # (B, njnt)
+    axis, jp = m.jnt_axis, m.jnt_pos
+    is_slide = torch.as_tensor(s.jnt_type == JNT_SLIDE, device=dev)[:, None]
+    rq = maths.axis_angle_to_quat(axis, qj)                   # (B, njnt, 4)
+    ident_q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype,
+                           device=dev).expand(B, njnt + 1, 4)
+    Jq = torch.where(is_slide, ident_q[:, :njnt], rq)
+    Jp = torch.where(is_slide, axis * qj[..., None],
+                     jp - maths.quat_rot(rq, jp))
+    Jq = torch.cat([Jq, ident_q[:, :1]], dim=1)
+    Jp = torch.cat([Jp, torch.zeros(B, 1, 3, dtype=dtype, device=dev)],
+                   dim=1)
+
+    # (b) in-body chains: L_b = offset_b . J_1 . ... . J_k.
+    Lq = m.body_quat.expand(B, nbody, 4)
+    Lp = m.body_pos.expand(B, nbody, 3)
+    round_q, round_p = [], []
+    for t in range(maxj):
+        slot = jslot[:, t]
+        newq = maths.quat_mul(Lq, Jq[:, idx(slot)])
+        newp = Lp + maths.quat_rot(Lq, Jp[:, idx(slot)])
+        round_q.append(newq)
+        round_p.append(newp)
+        has = torch.as_tensor((slot < njnt)[:, None], device=dev)
+        Lq = torch.where(has, newq, Lq)
+        Lp = torch.where(has, newp, Lp)
+
+    # (c) the tree prefix by pointer doubling.
+    Gq, Gp = Lq, Lp
+    for a in anc:
+        aj = idx(a)
+        pq, pp = Gq[:, aj], Gp[:, aj]
+        Gq = maths.quat_mul(pq, Gq)
+        Gp = pp + maths.quat_rot(pq, Gp)
+    xquat = maths.quat_normalize(Gq)
+    xpos = Gp
+
+    # Joint anchors and axes in world: the parent body's frame composed
+    # with the joint's within-body prefix (including the joint).
+    if njnt:
+        sj, bj = idx(slot_of_jnt), idx(body_of_jnt)
+        Aq = torch.stack(round_q, dim=1)[:, sj, bj]           # (B, njnt, 4)
+        Ap = torch.stack(round_p, dim=1)[:, sj, bj]
+        pb = idx(parent[body_of_jnt])
+        Wq, Wp = xquat[:, pb], xpos[:, pb]
+        WAq = maths.quat_normalize(maths.quat_mul(Wq, Aq))
+        WAp = Wp + maths.quat_rot(Wq, Ap)
+        xanchor = WAp + maths.quat_rot(WAq, jp)
+        xaxis = maths.quat_rot(WAq, axis)
+    else:
+        xanchor = torch.zeros(B, 0, 3, dtype=dtype, device=dev)
+        xaxis = torch.zeros(B, 0, 3, dtype=dtype, device=dev)
+    return _frames(m, xpos, xquat, xanchor, xaxis)
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +399,29 @@ def fk_cuda(m: Model, qpos: torch.Tensor) -> Kin:
                root_com=subtree_com[:, rootid], cdof=cdof, cinert=cinert)
 
 
+def fk_impl(dtype=torch.float32) -> str:
+    """The FK that `kinematics` runs for `dtype`, read from the
+    environment as the JAX package reads it: MJE_FK_IMPL (pallas,
+    parallel or ref; default pallas), MJE_NO_FK_KERNEL=1 turning pallas
+    into ref; any dtype but float32 runs ref."""
+    impl = os.environ.get("MJE_FK_IMPL", "pallas")
+    if dtype != torch.float32:
+        return "ref"
+    if impl == "pallas" and os.environ.get("MJE_NO_FK_KERNEL", "0") == "1":
+        return "ref"
+    return impl
+
+
 def kinematics(m: Model, qpos: torch.Tensor) -> Kin:
-    """Forward kinematics for qpos (B, nq): the FK kernel for a CUDA
-    float32 qpos, the plain version for a CPU one; anything else raises."""
-    if kernels._on_card(qpos):
+    """Forward kinematics for qpos (B, nq), as `fk_impl` selects: the FK
+    kernel for a CUDA float32 qpos under pallas, `kinematics_parallel`
+    under parallel, the plain version otherwise; a dtype the card's path
+    does not take raises there (`kernels._on_card`)."""
+    on_card = kernels._on_card(qpos)
+    impl = fk_impl(qpos.dtype)
+    if impl == "parallel":
+        return kinematics_parallel(m, qpos)
+    if impl == "pallas" and on_card:
         m = m.replace(**{f: getattr(m, f).contiguous()
                          for f in fk_field_shapes(m.spec)})
         return fk_cuda(m, qpos.contiguous())

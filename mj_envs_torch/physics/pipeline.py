@@ -1,5 +1,8 @@
 """Forward dynamics pipeline and semi-implicit Euler integration
-(`mj_envs_tpu/physics/pipeline.py`, float32 path), batch-first.
+(`mj_envs_tpu/physics/pipeline.py`), batch-first, in float32 (the card's
+kernel path) or float64 (the JAX package's oracle-parity path: its op
+set stage by stage, the plain versions on any device, every knob
+ignored).
 
 `step(model, data, ctrl)` has mj_step semantics: forward dynamics at the
 current state (kinematics -> tendons/actuation -> smooth forces ->
@@ -51,10 +54,7 @@ def ncmax(spec) -> int:
 def forward_core(m: Model, qpos, qvel, ctrl, qacc_warmstart,
                  qfrc_applied) -> ForwardOut:
     s = m.spec
-    if qpos.dtype != torch.float32:
-        raise NotImplementedError(
-            "the port runs the float32 physics path only; the float64 "
-            "oracle-parity path is a later slice")
+    f32 = qpos.dtype == torch.float32
     kin = K.kinematics(m, qpos)
     M = D.crb(m, kin)
     vel = D.com_velocity(m, kin, qvel)
@@ -62,8 +62,9 @@ def forward_core(m: Model, qpos, qvel, ctrl, qacc_warmstart,
     qfrc_passive = D.passive_force(m, qpos, qvel)
     act = A.actuation(m, qpos, qvel, ctrl)
     qfrc_smooth = act.qfrc_actuator + qfrc_passive + qfrc_applied - qfrc_bias
-    if s.noslip_iterations > 0:
-        # Keep the factor of M for noslip's matrix right-hand side.
+    if f32 and s.noslip_iterations > 0:
+        # Keep the factor of M for noslip's matrix right-hand side
+        # (float64's noslip works from inv(M) instead).
         qacc_smooth, M_fac = kernels.chol_solve_factor(M, qfrc_smooth)
     else:
         qacc_smooth, M_fac = kernels.chol_solve(M, qfrc_smooth), None
@@ -72,7 +73,7 @@ def forward_core(m: Model, qpos, qvel, ctrl, qacc_warmstart,
     contact_full, contacts = C.collide(m, kin, nc)
     rows = CN.make_rows(m, kin, qpos, qvel, contacts)
     # The f32 solver knobs, read on every call (the JAX package reads
-    # them when it traces).
+    # them when it traces); the float64 path ignores them.
     solve = S.newton_solve(M, qacc_smooth, rows, qacc_warmstart,
                            iterations=s.iterations,
                            tol_scale=S.newton_tol_scale())
@@ -127,8 +128,11 @@ def _sensors(m: Model, kin: K.Kin, qpos, act: A.Actuation,
         b1, b2 = gb[contacts.geom1], gb[contacts.geom2]            # (B, C)
         # (B, S, C, 3): contact positions in each touch site's frame.
         diff = contacts.pos[:, None, :, :] - kin.site_xpos[:, sid][:, :, None]
-        rel = (kin.site_xmat[:, sid][:, :, None, :, :]
-               * diff[..., :, None]).sum(-2)
+        if diff.dtype == torch.float64:     # the JAX package's f64 einsum
+            rel = torch.einsum("nsji,nscj->nsci", kin.site_xmat[:, sid], diff)
+        else:
+            rel = (kin.site_xmat[:, sid][:, :, None, :, :]
+                   * diff[..., :, None]).sum(-2)
         size = m.site_size[sid][None, :, None, :]                  # (1,S,1,3)
         in_sphere = (rel * rel).sum(-1) <= size[..., 0] ** 2
         in_cyl = (rel[..., 2].abs() <= size[..., 1]) & (

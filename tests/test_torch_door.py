@@ -12,7 +12,8 @@ import torch
 
 from mj_envs_torch import envs as tenvs
 from mj_envs_torch.parallel.vector import VectorEnv
-from test_torch_hammer import check_auto_reset_steps, task_pair
+from test_torch_hammer import (check_auto_reset_steps, check_trajectory,
+                               task_pair)
 
 envs_pair = task_pair("door-v0")
 
@@ -20,6 +21,15 @@ envs_pair = task_pair("door-v0")
 def test_auto_reset_steps_match_jax(envs_pair):
     assert envs_pair["tenv"].FRAME_SKIP == 1
     check_auto_reset_steps(envs_pair)
+
+
+# 50 substeps = 50 env steps.  Measured worst over seeds 0-2 (max abs):
+# qpos 2.5e-6, qvel 1.7e-4, obs 2.5e-6.
+TRAJ_BOUNDS = {"qpos": 6e-6, "qvel": 4e-4, "obs": 6e-6}
+
+
+def test_50_substep_trajectory_matches_jax(envs_pair):
+    check_trajectory(envs_pair, TRAJ_BOUNDS)
 
 
 def test_reset_distribution():

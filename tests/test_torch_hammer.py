@@ -39,21 +39,26 @@ def to_port(st) -> EnvState:
         **{f: np.asarray(getattr(st, f)) for f in EnvState.LEAVES})
 
 
+def make_pair(task):
+    """The JAX and port envs of `task` with their VectorEnvs, the JAX
+    reset states and the jitted JAX step."""
+    jenv = jenvs.make(task)
+    jv = JVectorEnv(jenv, N, chunk_size=CHUNK)
+    tenv = tenvs.make(task, device="cpu")
+    tv = VectorEnv(tenv, N, chunk_size=CHUNK)
+    tv.reset(seed=0)           # seeds the port's reset generator
+    return dict(jenv=jenv, jst0=jax.jit(jv.reset)(jax.random.PRNGKey(0)),
+                jstep=jax.jit(jv.step), tenv=tenv, tv=tv)
+
+
 def task_pair(task):
-    """A module-scoped fixture: the JAX and port envs of `task` with
-    their VectorEnvs, the JAX reset states and the jitted JAX step.  The
-    other task files (`test_torch_door.py`, ...) build theirs with it."""
+    """A module-scoped fixture: `make_pair(task)`.  The other task files
+    (`test_torch_door.py`, ...) build theirs with it."""
     @pytest.fixture(scope="module")
     def envs_pair():
         n_threads = torch.get_num_threads()
         torch.set_num_threads(1)   # six xdist workers share the CPU
-        jenv = jenvs.make(task)
-        jv = JVectorEnv(jenv, N, chunk_size=CHUNK)
-        tenv = tenvs.make(task, device="cpu")
-        tv = VectorEnv(tenv, N, chunk_size=CHUNK)
-        tv.reset(seed=0)           # seeds the port's reset generator
-        yield dict(jenv=jenv, jst0=jax.jit(jv.reset)(jax.random.PRNGKey(0)),
-                   jstep=jax.jit(jv.step), tenv=tenv, tv=tv)
+        yield make_pair(task)
         torch.set_num_threads(n_threads)
     return envs_pair
 
@@ -93,8 +98,55 @@ def check_auto_reset_steps(p):
     np.testing.assert_array_equal(st_t.step_count.numpy(), STEPS)
 
 
+TRAJ_SUBSTEPS = 50
+
+
+def trajectory_errors(p, seed):
+    """TRAJ_SUBSTEPS physics substeps (TRAJ_SUBSTEPS / FRAME_SKIP env
+    steps) from the JAX reset states with the same numpy actions, drawn
+    from `seed`, on both sides; the worst max abs error over the steps
+    of qpos, qvel and obs.  No episode may end on the way."""
+    env = p["tenv"]
+    st_j = p["jst0"]
+    st_t = to_port(st_j)
+    rng = np.random.default_rng(seed)
+    worst = dict.fromkeys(("qpos", "qvel", "obs"), 0.0)
+    for _ in range(TRAJ_SUBSTEPS // env.FRAME_SKIP):
+        a = rng.uniform(-1.0, 1.0, (N, env.nu)).astype(np.float32)
+        st_j = p["jstep"](st_j, a)
+        st_t = p["tv"].step(st_t, torch.as_tensor(a))
+        assert not bool(np.asarray(st_j.done).any()), "an episode ended"
+        for f in EXACT:
+            np.testing.assert_array_equal(getattr(st_t, f).numpy(),
+                                          np.asarray(getattr(st_j, f)), f)
+        for f, t, j in (("qpos", st_t.data.qpos, st_j.data.qpos),
+                        ("qvel", st_t.data.qvel, st_j.data.qvel),
+                        ("obs", st_t.obs, st_j.obs)):
+            worst[f] = max(worst[f], float(np.abs(
+                t.numpy().astype(np.float64) - np.asarray(j)).max()))
+    return worst
+
+
+def check_trajectory(p, bounds):
+    """`trajectory_errors` at seed 0 within `bounds` (max abs, per
+    field): each task file's bounds are 2-4x the worst over seeds 0-2
+    (`python tests/measure_torch_f64_floors.py f32`)."""
+    errs = trajectory_errors(p, 0)
+    over = {k: (v, bounds[k]) for k, v in errs.items() if not v <= bounds[k]}
+    assert not over, over
+
+
 def test_auto_reset_steps_match_jax(envs_pair):
     check_auto_reset_steps(envs_pair)
+
+
+# 50 substeps = 10 env steps.  Measured worst over seeds 0-2 (max abs):
+# qpos 1.9e-6, qvel 1.1e-4, obs 6.4e-6.
+TRAJ_BOUNDS = {"qpos": 5e-6, "qvel": 3e-4, "obs": 2e-5}
+
+
+def test_50_substep_trajectory_matches_jax(envs_pair):
+    check_trajectory(envs_pair, TRAJ_BOUNDS)
 
 
 def test_truncation_at_episode_cap(envs_pair):

@@ -313,7 +313,8 @@ def test_make_rows_fast(world):
 
 
 def _trows(rows_j):
-    return TCN.Rows(**{f: tt(getattr(rows_j, f)) for f in TCN.Rows._fields})
+    return TCN.Rows(**{f: None if getattr(rows_j, f) is None
+                       else tt(getattr(rows_j, f)) for f in TCN.Rows._fields})
 
 
 @cached

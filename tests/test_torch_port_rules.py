@@ -1,7 +1,8 @@
 """Rules of the PyTorch port that hold for every module of it.
 
-* The port (`mj_envs_torch/`) and `chip_smoke.py` import neither JAX nor
-  the JAX package nor Triton, at module level or inside a function.
+* The port (`mj_envs_torch/`), `chip_smoke.py` and `bench_torch.py`
+  import neither JAX nor the JAX package nor Triton, at module level or
+  inside a function.
 * `import mj_envs_torch` works on a machine with no GPU and no nvcc.
 * The entry points run on the card unless the caller asks for the CPU:
   without a GPU they raise instead of falling back.
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mj_envs_tpu", "triton")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "bench_torch.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "mj_envs_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -43,7 +45,9 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax_or_triton():
     files = _port_files()
-    assert len(files) > 20 and os.path.exists(files[0])
+    assert len(files) > 20 and all(os.path.exists(f) for f in files)
+    assert {os.path.join(ROOT, n) for n in ("chip_smoke.py",
+                                              "bench_torch.py")} <= set(files)
     bad = [(os.path.relpath(p, ROOT), mod) for p in files
            for mod in _imported_modules(p)
            if mod.split(".")[0] in FORBIDDEN]
@@ -85,14 +89,22 @@ def test_make_defaults_to_the_card():
 
 def test_unported_task_and_dtype_raise():
     """An unknown id raises, listing the four tasks; float64 (the JAX
-    package's oracle-parity path, not ported) raises too."""
+    package's oracle-parity path) builds and steps; a dtype the port has
+    no path for (bfloat16) raises."""
     from mj_envs_torch import envs
+    from mj_envs_torch.parallel.vector import VectorEnv
     with pytest.raises(ValueError) as err:
         envs.make("cheetah-v0", device="cpu")
     for name in ("hammer-v0", "door-v0", "pen-v0", "relocate-v0"):
         assert name in str(err.value)
+    env = envs.make("hammer-v0", device="cpu", dtype=torch.float64)
+    venv = VectorEnv(env, 2)
+    st = venv.step(venv.reset(seed=0), torch.zeros(2, env.nu,
+                                                   dtype=torch.float64))
+    assert st.data.qpos.dtype == torch.float64
+    assert bool(torch.isfinite(st.obs).all())
     with pytest.raises(NotImplementedError):
-        envs.make("hammer-v0", device="cpu", dtype=torch.float64)
+        envs.make("hammer-v0", device="cpu", dtype=torch.bfloat16)
 
 
 REFERENCES = ("linesearch_seq", "chol_solve_mat_block")
