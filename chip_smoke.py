@@ -38,7 +38,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
    5 auto-reset steps, then door, pen and relocate at the same size for
    2 steps each, every kernel's launch count set to 0 before each task's
    timed steps and read after them;
-6. one JSON line listing the kernels, then the device line.
+6. the trainer: `configs/hammer_ppo.json` at full width (1024 envs,
+   hidden (64, 64), 8 minibatches, 4 epochs, chunk 512, float32) for 2
+   iterations of `train_ppo_policy` into a temporary directory, cut only
+   in length (n_steps 8, 2 iterations, a checkpoint at the second, one
+   evaluation after training of 10 episodes of 5 steps): each
+   iteration's env-steps/s and rollout / GAE / update ms, the launches
+   of one iteration, the checkpoint restored bit for bit; then one
+   iteration of 8 hammer envs (n_steps 2, 2 x 2 minibatches) on the card
+   and on the CPU from the same state, weights, action noise and
+   permutations: the transitions and the params after;
+7. one JSON line listing the kernels, then the device line.
 
 Phase 3 also prints SHA-256 digests of the outputs of the factor
 kernel, the noslip kernel, the alpha-only linesearch and the
@@ -823,6 +833,171 @@ def main_path(TK, envs, VectorEnv, random_actions, dev, task, num_envs,
     return launches, steps * num_envs / dt
 
 
+PPO_CONFIG = os.path.join("configs", "hammer_ppo.json")
+# Phase 6's cuts of the config (length only; every width stays).
+PPO_CUTS = dict(n_steps=8, max_episodes=2, checkpoint_interval=2)
+EVAL_LENGTH, EVAL_COUNT = 5, 10
+# Card vs CPU: one iteration of a small batch on the same draws.
+PAIR_ENVS, PAIR_CFG = 8, dict(n_steps=2, n_minibatches=2, n_epochs=2,
+                              hidden=(64, 64))
+PAIR_TOL = dict(rtol=1e-3, atol=2e-3)     # phase 4's
+
+
+def trainer_phase(TK, envs, dev, info):
+    """Phase 6: `train_ppo_policy` on the card at the config's widths,
+    then one small iteration card against CPU on the same randomness.
+    Returns the launches of the training run (both iterations and the
+    evaluation)."""
+    import tempfile
+
+    from mj_envs_torch.algos import networks as NN, ppo as PPO
+    from mj_envs_torch.utils import checkpoint as CKPT, eval as EV
+    from mj_envs_torch.utils import train as TT
+    from mj_envs_torch.utils.config import PPOConfig
+
+    config = PPOConfig().load(os.path.join(ROOT, PPO_CONFIG))
+    full = {k: getattr(config, k) for k in PPO_CUTS}
+    for k, v in PPO_CUTS.items():
+        setattr(config, k, v)
+    cfg = TT.ppo_config(config)
+    env = envs.make(config.env_name, device=dev)
+    log(f"[6] trainer: {PPO_CONFIG} {config.env_name}, num_envs "
+        f"{config.num_envs}, hidden {cfg.hidden}, minibatches "
+        f"{cfg.n_minibatches}, epochs {cfg.n_epochs}, chunk "
+        f"{cfg.step_chunk}, float32; cuts: " + ", ".join(
+            f"{k} {full[k]} -> {v}" for k, v in PPO_CUTS.items())
+        + f"; eval once after training, {EVAL_COUNT} episodes of "
+        f"{EVAL_LENGTH} steps (the config: 10 of {env.MAX_EPISODE_STEPS} "
+        f"steps every {config.test_interval} iterations)")
+    snaps, rows = [], []
+
+    def on_iteration(episode, row):
+        torch.cuda.synchronize()
+        snaps.append(dict(TK.launches))
+        rows.append(row)
+        log(f"  iteration {episode}: {row['steps_per_s']:.1f} env-steps/s;"
+            f" rollout {row['rollout_ms']:.1f} ms, GAE {row['gae_ms']:.2f}"
+            f" ms, update {row['update_ms']:.1f} ms "
+            f"({row['rollout_ms'] / (row['rollout_ms'] + row['gae_ms'] + row['update_ms']) * 100:.2f} % rollout); "
+            f"mean_reward {row['mean_reward']:.4f}, pg_loss "
+            f"{row['pg_loss']:.4f}, v_loss {row['v_loss']:.4f} ({info})")
+
+    init_fn = PPO.make_ppo(env, config.num_envs, cfg, device=dev)[0]
+    p0 = [t.detach().clone() for t in init_fn(config.seed).module.parameters()]
+    with tempfile.TemporaryDirectory() as out:
+        TK.reset_launches()
+        t0 = time.perf_counter()
+        ts, _ = TT.train_ppo_policy(config, env, out, callback=on_iteration)
+        train_s = time.perf_counter() - t0
+
+        def policy(module, obs, gen):
+            return torch.clamp(module(obs)[0], -1.0, 1.0)
+
+        t0 = time.perf_counter()
+        res = EV.make_evaluate(env, policy, EVAL_LENGTH)(
+            ts.module, config.seed + 2, count=EVAL_COUNT)
+        eval_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(TK.launches)
+        latest = CKPT.latest(out)
+        check(latest == CKPT.checkpoint_path(out, 2),
+              f"checkpoint: {latest}")
+        back = CKPT.restore(latest, init_fn(config.seed + 99))
+        same = all(torch.equal(a, b) for a, b in zip(
+            back.module.parameters(), ts.module.parameters()))
+        log(f"  checkpoint {os.path.basename(latest)} restored: params bit "
+            f"for bit: {same}")
+        check(same, "restore did not reproduce the params")
+    one = {k: snaps[1][k] - snaps[0][k] for k in TK.KERNELS}
+    log(f"  launches of iteration 2 ({cfg.n_steps} steps x "
+        f"{config.num_envs // cfg.step_chunk} chunks x 5 substeps): "
+        f"{json.dumps(one)}")
+    for name in MAIN_KERNELS:
+        check(one[name] > 0, f"kernel {name} was not launched by a PPO "
+              "iteration")
+    for r in rows:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        check(not bad, f"non-finite metrics {bad}")
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(ts.module.parameters(), p0))
+    log(f"  training {train_s:.1f} s; params moved by up to {moved:.3e}; "
+        f"eval {EVAL_COUNT} x {EVAL_LENGTH} steps in {eval_s:.1f} s: "
+        f"reward {res.total_rewards.mean():.3f}, success "
+        f"{res.success_rate:.1f} %")
+    check(moved > 0, "the update did not move the params")
+    check(res.obs.shape == (EVAL_COUNT, EVAL_LENGTH, env.OBS_DIM)
+          and np.isfinite(res.obs).all()
+          and np.isfinite(res.total_rewards).all(), "eval result")
+    trainer_pair(envs, dev, config, PPO, NN)
+    return launches
+
+
+def trainer_pair(envs, dev, config, PPO, NN):
+    """Phase 6, card vs CPU: one PPO iteration of PAIR_ENVS envs on each
+    device from the same env state, weights, action noise and
+    permutations; the transitions within PAIR_TOL, and the params after
+    the update within the bound of Adam's steps."""
+    cfg = PPO.PPOConfig(lr=config.learning_rate,
+                        max_grad_norm=float(config.grad_clip_norm),
+                        **PAIR_CFG)
+    env_p = envs.make(config.env_name, device="cpu")
+    env_k = envs.make(config.env_name, device=dev)
+    gen = torch.Generator().manual_seed(7)
+    st_p = env_p.reset(PAIR_ENVS, env_p.generator(7))
+    mod_p = NN.ActorCritic(env_p.OBS_DIM, env_p.nu, cfg.hidden,
+                           generator=gen, device="cpu")
+    n = cfg.n_steps * PAIR_ENVS
+    noise = torch.randn(cfg.n_steps, PAIR_ENVS, env_p.nu, generator=gen)
+    perms = torch.stack([torch.randperm(n, generator=gen)
+                         for _ in range(cfg.n_epochs)])
+    out = {}
+    for name, env, st in (("card", env_k, st_p.map(lambda x: x.to(dev))),
+                          ("cpu", env_p, st_p)):
+        mod = NN.actor_critic_from_numpy(NN.actor_critic_to_numpy(mod_p),
+                                         device=env.device)
+        ts = PPO.TrainState(mod, PPO.make_optimizer(mod, cfg),
+                            torch.Generator(device=env.device),
+                            env.generator(8))
+        es, traj = PPO.make_rollout(env, cfg)(ts, st, noise.to(env.device))
+        with torch.no_grad():
+            last = mod(es.obs)[2]
+        adv, ret = PPO._gae(cfg, traj, last)
+        metrics = PPO._make_update(cfg)(ts, traj, adv, ret,
+                                        perms.to(env.device))
+        out[name] = (traj, adv, [t.detach().cpu() for t in mod.parameters()],
+                     {k: float(v) for k, v in metrics.items()})
+    (tk, ak, pk, mk), (tp, ap, pp, mp) = out["card"], out["cpu"]
+    use, worst = (0.0, ""), 0.0
+    for f in ("obs", "action", "log_prob", "value", "reward", "trunc_boot"):
+        x, y = getattr(tk, f).cpu().double(), getattr(tp, f).double()
+        d = (x - y).abs()
+        worst = max(worst, d.max().item())
+        use = max(use, ((d / (PAIR_TOL["atol"] + PAIR_TOL["rtol"] * y.abs()))
+                        .max().item(), f))
+        torch.testing.assert_close(x, y, **PAIR_TOL,
+                                   msg=lambda m: f"trainer pair {f}: {m}")
+    check(torch.equal(tk.done.cpu(), tp.done), "trainer pair: done differs")
+    # Adam moves a parameter by at most ~lr a step whatever its gradient
+    # (its first step is lr * sign(g)), so the two devices' params can
+    # differ by at most 2 lr per update where a gradient component near 0
+    # takes another sign.
+    n_upd = cfg.n_epochs * cfg.n_minibatches
+    p_bound = 2.0 * cfg.lr * n_upd
+    p_err = max((a - b).abs().max().item() for a, b in zip(pk, pp))
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(pp, mod_p.parameters()))
+    log(f"  card vs CPU, {PAIR_ENVS} envs x {cfg.n_steps} steps, "
+        f"{cfg.n_epochs} x {cfg.n_minibatches} minibatches, same draws: "
+        f"transitions max abs diff {worst:.3e}, largest share of the "
+        f"tolerance (rtol 1e-3, atol 2e-3) used {use[0]:.3f} ({use[1]}); "
+        f"advantages max abs diff {(ak.cpu() - ap).abs().max().item():.3e}"
+        f"; params after the update max abs diff {p_err:.3e} (bound "
+        f"2 lr x {n_upd} updates = {p_bound:.1e}, share used "
+        f"{p_err / p_bound:.3f}; the update moved them by up to "
+        f"{moved:.3e}); pg_loss {mk['pg_loss']:.6f} vs {mp['pg_loss']:.6f}")
+    check(p_err <= p_bound, f"trainer pair: params differ by {p_err:.3e}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (the port's kernels need an "
@@ -872,10 +1047,16 @@ def main():
             B_CHUNK, STEPS[task])
         for name, n in launches.items():
             total[name] += n
+    log(json.dumps({"env_steps_per_s": rates, "gpu": info}))
+
+    trainer = trainer_phase(TK, envs, dev, info)
+    for name, n in trainer.items():
+        total[name] += n
+    log(f"[7] launches: main path (phase 5) and trainer (phase 6) "
+        f"together: {json.dumps(total)}")
     for e in entries:
         e["launches"] = total[e["name"]]
 
-    log(json.dumps({"env_steps_per_s": rates, "gpu": info}))
     log(info)
     log(json.dumps({"kernels": entries}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,144 @@
+"""Policy / value networks of the PyTorch port
+(`mj_envs_tpu/algos/networks.py:1-72`, the state-vector half).
+
+The JAX package keeps its MLPs as pytrees of {"w": (in, out), "b":
+(out,)} layers; here they are `nn.Linear` layers, whose weight is
+(out, in).  `actor_critic_from_numpy` / `actor_critic_to_numpy` carry a
+JAX parameter tree across and back, transposing each weight.  The CNN
+torso of the pixel policy comes with the renderer's slice.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _orthogonal(n: int, generator: torch.Generator, dtype) -> torch.Tensor:
+    """An (n, n) orthogonal matrix: QR of a Gaussian draw, the signs of
+    R's diagonal moved into Q (the Haar measure, as
+    `jax.random.orthogonal`; a different stream)."""
+    a = torch.randn(n, n, generator=generator, device=generator.device,
+                    dtype=torch.float64)
+    q, r = torch.linalg.qr(a)
+    return (q * torch.sign(torch.diagonal(r))).to(dtype)
+
+
+def _init_linear(layer: nn.Linear, generator: torch.Generator,
+                 scale: float):
+    """`_init_linear` (:17-21): an orthogonal matrix of size
+    max(fan_in, fan_out) cut to [:fan_in, :fan_out] and scaled; zero
+    bias."""
+    fan_out, fan_in = layer.weight.shape
+    w = _orthogonal(max(fan_in, fan_out), generator, layer.weight.dtype)
+    with torch.no_grad():
+        layer.weight.copy_((w[:fan_in, :fan_out] * scale).T)
+        layer.bias.zero_()
+
+
+def _mlp(sizes: Sequence[int], out_scale: float, generator, device,
+         dtype) -> nn.ModuleList:
+    layers = nn.ModuleList(
+        nn.Linear(sizes[i], sizes[i + 1], device=device, dtype=dtype)
+        for i in range(len(sizes) - 1))
+    for i, layer in enumerate(layers):
+        last = i == len(layers) - 1
+        _init_linear(layer, generator, out_scale if last else math.sqrt(2.0))
+    return layers
+
+
+def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    for layer in layers[:-1]:
+        x = torch.tanh(layer(x))
+    return layers[-1](x)
+
+
+class ActorCritic(nn.Module):
+    """Diagonal-Gaussian actor and value critic with separate tanh
+    trunks and a state-independent log_std (SB3's ActorCriticPolicy
+    layout).  The actor's last layer is scaled by 0.01, the critic's by
+    1.0; the weights are drawn from `generator` (on the device the
+    module is built on when none is given, seeded 0)."""
+
+    def __init__(self, obs_dim: int, act_dim: int,
+                 hidden: Sequence[int] = (64, 64),
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        device = torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        self.hidden = tuple(hidden)
+        self.actor = _mlp((obs_dim, *hidden, act_dim), 0.01, generator,
+                          device, dtype)
+        self.critic = _mlp((obs_dim, *hidden, 1), 1.0, generator, device,
+                           dtype)
+        self.log_std = nn.Parameter(
+            torch.zeros(act_dim, device=device, dtype=dtype))
+
+    def forward(self, obs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (mean (..., act_dim), log_std (act_dim,), value (...,))."""
+        mean = _mlp_apply(self.actor, obs)
+        value = _mlp_apply(self.critic, obs)[..., 0]
+        return mean, self.log_std, value
+
+
+def gaussian_log_prob(mean, log_std, action):
+    z = (action - mean) / torch.exp(log_std)
+    return torch.sum(-0.5 * z * z - log_std - 0.5 * _LOG_2PI, dim=-1)
+
+
+def gaussian_entropy(log_std):
+    return torch.sum(log_std + 0.5 * (_LOG_2PI + 1.0), dim=-1)
+
+
+def gaussian_sample(mean, log_std, generator: Optional[torch.Generator],
+                    noise: Optional[torch.Tensor] = None):
+    """mean + exp(log_std) * noise; `noise` (standard normal, the shape
+    of `mean`) is drawn from `generator` unless given."""
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(log_std) * noise
+
+
+def _layers_to_numpy(layers: nn.ModuleList):
+    return [{"w": lyr.weight.detach().cpu().numpy().T.copy(),
+             "b": lyr.bias.detach().cpu().numpy().copy()} for lyr in layers]
+
+
+def actor_critic_to_numpy(module: ActorCritic) -> Dict:
+    """The JAX package's parameter tree: {"actor": [{"w": (in, out),
+    "b": (out,)}, ...], "critic": [...], "log_std": (act_dim,)}."""
+    return {"actor": _layers_to_numpy(module.actor),
+            "critic": _layers_to_numpy(module.critic),
+            "log_std": module.log_std.detach().cpu().numpy().copy()}
+
+
+def actor_critic_from_numpy(params: Dict, device="cuda",
+                            dtype=torch.float32) -> ActorCritic:
+    """An ActorCritic holding `params`, a JAX-layout tree of arrays (as
+    `actor_critic_init` returns, or `actor_critic_to_numpy`)."""
+    actor, critic = params["actor"], params["critic"]
+    obs_dim = np.shape(actor[0]["w"])[0]
+    act_dim = np.shape(actor[-1]["w"])[1]
+    hidden = tuple(np.shape(lyr["w"])[1] for lyr in actor[:-1])
+    crit_hidden = tuple(np.shape(lyr["w"])[1] for lyr in critic[:-1])
+    if crit_hidden != hidden:
+        raise ValueError(f"actor trunk {hidden} != critic trunk "
+                         f"{crit_hidden}")
+    module = ActorCritic(obs_dim, act_dim, hidden, device=device,
+                         dtype=dtype)
+    with torch.no_grad():
+        for layers, tree in ((module.actor, actor), (module.critic, critic)):
+            for lyr, p in zip(layers, tree):
+                lyr.weight.copy_(torch.as_tensor(np.array(p["w"]).T))
+                lyr.bias.copy_(torch.as_tensor(np.array(p["b"])))
+        module.log_std.copy_(torch.as_tensor(np.array(params["log_std"])))
+    return module

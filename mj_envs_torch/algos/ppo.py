@@ -1,0 +1,295 @@
+"""PPO of the PyTorch port (`mj_envs_tpu/algos/ppo.py:1-204`, the
+state-vector learner; the pixel PPO comes with the renderer's slice).
+
+One iteration rolls `n_steps` auto-reset env steps of `num_envs` envs
+(stepped in chunks of `step_chunk`, the port's `parallel/vector.py`),
+computes GAE and runs `n_epochs` x `n_minibatches` clipped-surrogate
+updates.  Where the JAX package jits one function, this is a host loop
+of batched torch ops; the physics substeps inside each env step launch
+the port's CUDA kernels.
+
+Randomness is explicit: the action noise and the per-epoch permutations
+come from `TrainState.generator`, the auto-resets from
+`TrainState.reset_generator`.  `train_iter_fn` takes an optional `noise`
+(T, B, nu) and `perms` (n_epochs, T*B) in their place, so a test can
+feed the JAX package's draws.
+
+The optimizer is the JAX package's `optax.chain(clip_by_global_norm,
+adam)`: the clip is written out (optax scales by max_norm / g_norm only
+when g_norm >= max_norm, where `clip_grad_norm_` always multiplies by
+max_norm / (g_norm + 1e-6)), then `torch.optim.Adam` (b1 0.9, b2 0.999,
+eps 1e-8), which computes optax's update in exact arithmetic.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from . import networks as N
+from ..envs.base import AdroitEnv, EnvState
+from ..parallel.vector import _chunked
+
+
+class PPOConfig(NamedTuple):
+    lr: float = 3e-4
+    n_steps: int = 64            # rollout length per iteration
+    n_minibatches: int = 8
+    n_epochs: int = 4
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    vf_coef: float = 0.5
+    ent_coef: float = 0.0
+    max_grad_norm: float = 0.5
+    hidden: Tuple[int, ...] = (64, 64)
+    # Envs per chunk of the batched step (the Newton loop runs until its
+    # slowest env converges; chunks exit on their own).  0 disables.
+    step_chunk: int = 512
+    # Envs per render chunk of the pixel PPO (a later slice); unused here.
+    pixel_chunk: int = 256
+
+
+@dataclasses.dataclass
+class TrainState:
+    module: N.ActorCritic
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator         # action noise, permutations
+    reset_generator: torch.Generator   # the env's auto-resets
+
+
+class Transition(NamedTuple):
+    obs: torch.Tensor
+    action: torch.Tensor
+    log_prob: torch.Tensor
+    value: torch.Tensor
+    reward: torch.Tensor
+    done: torch.Tensor
+    trunc_boot: torch.Tensor   # V(final_obs) at pure truncations, else 0
+
+
+def check_device(env: AdroitEnv, device) -> torch.device:
+    """The device a learner runs on: the env's, which must be `device`
+    (the card unless the caller asks for the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's learners run on the card by "
+            "default; pass device='cpu' (and an env made on the CPU) to "
+            "run the plain CPU path")
+    if env.device.type != device.type:
+        raise ValueError(f"the env is on {env.device}, the learner was "
+                         f"asked for {device}")
+    return env.device
+
+
+def make_optimizer(module: N.ActorCritic, cfg: PPOConfig):
+    return torch.optim.Adam(module.parameters(), lr=cfg.lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm on the grads of `params`, in place:
+    g / g_norm * max_norm when g_norm >= max_norm, else unchanged.
+    Returns g_norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = g_norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
+    return g_norm
+
+
+def make_ppo(env: AdroitEnv, num_envs: int, cfg: PPOConfig = PPOConfig(),
+             device="cuda", debug_nans: bool = False):
+    """Build (init_fn, train_iter_fn, act_fn) for `env` on `device` (the
+    card unless the caller asks for the CPU; the env must be on it).
+    With `debug_nans` a rollout step raises FloatingPointError where the
+    quarantine would restart a non-finite env.
+
+    init_fn(seed) -> TrainState.  train_iter_fn(train_state, env_state,
+    noise=None, perms=None) -> (train_state, env_state, metrics): one
+    PPO iteration (rollout + GAE + update), the module and optimizer
+    updated in place.  act_fn is `act`."""
+    dev = check_device(env, device)
+
+    def init_fn(seed: int) -> TrainState:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        module = N.ActorCritic(env.OBS_DIM, env.nu, cfg.hidden,
+                               generator=gen, device=dev, dtype=env.dtype)
+        return TrainState(module=module,
+                          optimizer=make_optimizer(module, cfg),
+                          generator=gen,
+                          reset_generator=env.generator(seed + 1))
+
+    rollout = make_rollout(env, cfg, debug_nans)
+    update = _make_update(cfg)
+
+    def train_iter_fn(ts: TrainState, env_state: EnvState, noise=None,
+                      perms=None, timings: Optional[Dict] = None):
+        """One iteration; `timings`, when given, receives the ms of the
+        rollout, GAE and update (synchronizing the card between them)."""
+        clock = _Clock(dev) if timings is not None else None
+        env_state, traj = rollout(ts, env_state, noise)
+        if clock:
+            timings["rollout_ms"] = clock.lap()
+        with torch.no_grad():
+            last_value = ts.module(env_state.obs)[2]
+        advs, rets = _gae(cfg, traj, last_value)
+        if clock:
+            timings["gae_ms"] = clock.lap()
+        metrics = update(ts, traj, advs, rets, perms)
+        metrics["mean_reward"] = traj.reward.mean()
+        metrics["mean_episode_done"] = traj.done.to(traj.reward.dtype).mean()
+        metrics["nan_resets"] = env_state.nan_resets.sum()
+        if clock:
+            timings["update_ms"] = clock.lap()
+        return ts, env_state, metrics
+
+    return init_fn, train_iter_fn, act
+
+
+def act(module, obs, generator, noise=None):
+    """-> (action, log_prob, value): a Gaussian draw around the actor's
+    mean (`noise` in place of the generator's normals when given)."""
+    mean, log_std, value = module(obs)
+    action = N.gaussian_sample(mean, log_std, generator, noise)
+    return action, N.gaussian_log_prob(mean, log_std, action), value
+
+
+def make_rollout(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool = False):
+    """rollout(train_state, env_state, noise=None) -> (env_state,
+    trajectory): `cfg.n_steps` auto-reset steps (`ppo.py:86-106`).  The
+    sampled action, unclipped, and its log-prob go into the trajectory;
+    the env gets it clipped to [-1, 1]."""
+
+    def rollout(ts: TrainState, env_state: EnvState, noise=None):
+        out = []
+        with torch.no_grad():
+            es = env_state
+            for t in range(cfg.n_steps):
+                action, logp, value = act(ts.module, es.obs, ts.generator,
+                                          None if noise is None else noise[t])
+                es2 = _chunked(env.step_auto_reset, es,
+                               torch.clamp(action, -1.0, 1.0),
+                               cfg.step_chunk, ts.reset_generator)
+                if debug_nans:
+                    _raise_on_quarantine(t, es, es2)
+                # Truncation bootstrap: at a cap boundary es2.obs is the
+                # next episode's; the finishing obs is final_obs.
+                v_final = ts.module(es2.final_obs)[2]
+                trunc_boot = torch.where(es2.truncated, v_final,
+                                         torch.zeros_like(v_final))
+                out.append(Transition(
+                    obs=es.obs, action=action, log_prob=logp, value=value,
+                    reward=es2.reward, done=es2.done,
+                    trunc_boot=trunc_boot))
+                es = es2
+        return es, Transition(*(torch.stack(xs) for xs in zip(*out)))
+
+    return rollout
+
+
+def _raise_on_quarantine(t, before: EnvState, after: EnvState):
+    bad = (after.nan_resets > before.nan_resets).nonzero().flatten()
+    if bad.numel():
+        raise FloatingPointError(
+            f"rollout step {t}: non-finite env state in envs "
+            f"{bad.tolist()[:16]} (quarantined)")
+
+
+class _Clock:
+    def __init__(self, dev):
+        self.dev = dev
+        self._sync()
+        self.t = time.perf_counter()
+
+    def _sync(self):
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+
+    def lap(self) -> float:
+        self._sync()
+        t, self.t = self.t, time.perf_counter()
+        return (self.t - t) * 1e3
+
+
+def _gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):
+    """Generalized advantage estimation over a (T, B) trajectory:
+    (advantages, returns)."""
+    T = traj.reward.shape[0]
+    advs = torch.empty_like(traj.value)
+    adv_next = torch.zeros_like(last_value)
+    v_next = last_value
+    for t in range(T - 1, -1, -1):
+        nonterm = 1.0 - traj.done[t].to(traj.value.dtype)
+        # boundary value: 0 at termination/quarantine, V(final_obs) at
+        # pure truncation, V(next obs) mid-episode
+        boot = v_next * nonterm + traj.trunc_boot[t]
+        delta = traj.reward[t] + cfg.gamma * boot - traj.value[t]
+        adv_next = delta + cfg.gamma * cfg.gae_lambda * nonterm * adv_next
+        advs[t] = adv_next
+        v_next = traj.value[t]
+    return advs, advs + traj.value
+
+
+def ppo_loss(cfg: PPOConfig, module, obs, action, old_logp, adv, ret):
+    """(total loss, metrics) of one minibatch, `_make_update.loss_fn`."""
+    mean, log_std, value = module(obs)
+    logp = N.gaussian_log_prob(mean, log_std, action)
+    ratio = torch.exp(logp - old_logp)
+    adv_n = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    pg1 = ratio * adv_n
+    pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv_n
+    pg_loss = -torch.mean(torch.minimum(pg1, pg2))
+    v_loss = 0.5 * torch.mean((value - ret) ** 2)
+    ent = torch.mean(N.gaussian_entropy(log_std))
+    total = pg_loss + cfg.vf_coef * v_loss - cfg.ent_coef * ent
+    with torch.no_grad():
+        clip_frac = torch.mean(
+            ((ratio - 1.0).abs() > cfg.clip_eps).to(torch.float32))
+        approx_kl = torch.mean(old_logp - logp)
+    return total, dict(pg_loss=pg_loss.detach(), v_loss=v_loss.detach(),
+                       entropy=ent.detach(), clip_fraction=clip_frac,
+                       approx_kl=approx_kl)
+
+
+def _make_update(cfg: PPOConfig):
+    """The minibatch-epoch update: update(train_state, traj, advs, rets,
+    perms=None) -> metrics averaged over epochs x minibatches; the
+    module and optimizer are updated in place.  An epoch
+    takes a permutation of T*B (drawn from the train state's generator
+    unless `perms` gives it) and `n_minibatches` slices of
+    mb = T*B // n_minibatches of it; leftover samples are dropped."""
+
+    def update(ts: TrainState, traj: Transition, advs, rets, perms=None):
+        T, B = traj.reward.shape
+        n = T * B
+        flat = Transition(*(x.reshape((n,) + x.shape[2:]) for x in traj))
+        advs, rets = advs.reshape(n), rets.reshape(n)
+        mb = n // cfg.n_minibatches
+        params = list(ts.module.parameters())
+        dev = advs.device
+        per_mb: Dict[str, list] = {}
+        for epoch in range(cfg.n_epochs):
+            perm = (perms[epoch].to(dev) if perms is not None else
+                    torch.randperm(n, generator=ts.generator, device=dev))
+            for i in range(cfg.n_minibatches):
+                sel = perm[i * mb:(i + 1) * mb]
+                ts.optimizer.zero_grad(set_to_none=False)
+                loss, m = ppo_loss(cfg, ts.module, flat.obs[sel],
+                                   flat.action[sel], flat.log_prob[sel],
+                                   advs[sel], rets[sel])
+                loss.backward()
+                with torch.no_grad():
+                    clip_by_global_norm_(params, cfg.max_grad_norm)
+                ts.optimizer.step()
+                for k, v in m.items():
+                    per_mb.setdefault(k, []).append(v)
+        # Each metric averaged in its own dtype (clip_fraction is
+        # float32 in both packages).
+        return {k: torch.stack(v).mean() for k, v in per_mb.items()}
+
+    return update

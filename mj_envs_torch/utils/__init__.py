@@ -1,1 +1,2 @@
-"""Utilities of the task layer."""
+"""Utilities: quaternion maths of the task layer, and the trainer's
+config, checkpoints, evaluation and training loop."""

@@ -1,0 +1,205 @@
+"""Training loop of the PyTorch port (`mj_envs_tpu/utils/train.py:
+31-195`): the PPO trainer on state observations.
+
+One PPO "episode" is one iteration over `num_envs` envs on the env's
+device (rollout + GAE + minibatch epochs, `algos/ppo.py`); the host loop
+keeps the reference cadence: evaluation every `test_interval`,
+checkpoints every `checkpoint_interval`, metrics logging, resume from
+the latest checkpoint when `models_path` is set.  Pixel PPO
+(`model_type == "cnn"`), NPG/DAPG, SAC and PlaNet come in later slices
+of the port and raise here.
+"""
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..algos import ppo as PPO
+from ..envs.base import AdroitEnv
+from . import checkpoint as CKPT
+from .eval import make_evaluate
+
+PROF = True
+
+
+class ProfilerHook:
+    """A `torch.profiler` trace over training episodes 2..3 (steady
+    state, after episode 1's kernel builds), enabled by setting
+    MJE_PROFILE_DIR; the Chrome trace goes to
+    $MJE_PROFILE_DIR/trace.json."""
+
+    START_EP, STOP_EP = 2, 3
+
+    def __init__(self):
+        self.dir = os.environ.get("MJE_PROFILE_DIR", "")
+        self.prof = None
+
+    def before(self, episode: int):
+        if self.dir and self.prof is None and episode == self.START_EP:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def after(self, episode: int):
+        if self.prof is not None and episode >= self.STOP_EP:
+            self.prof.stop()
+            os.makedirs(self.dir, exist_ok=True)
+            path = os.path.join(self.dir, "trace.json")
+            self.prof.export_chrome_trace(path)
+            self.prof = None
+            print(f"profiler trace written to {path}", flush=True)
+
+
+class Metrics:
+    """Accumulating scalar metrics, written as CSV and, when `tb_dir` is
+    given and tensorboard is installed, streamed to TensorBoard event
+    files."""
+
+    def __init__(self, tb_dir: Optional[str] = None):
+        self.rows: List[Dict[str, float]] = []
+        self._tb = None
+        if tb_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir=tb_dir)
+            except Exception as e:   # tensorboard optional at runtime
+                print(f"tensorboard writer unavailable: {e}")
+
+    def append(self, **kw: float):
+        self.rows.append({k: float(v) for k, v in kw.items()})
+        if self._tb is not None:
+            step = int(kw.get("episode", len(self.rows)))
+            for k, v in kw.items():
+                if k != "episode":
+                    self._tb.add_scalar(k, float(v), step)
+
+    def close(self):
+        if self._tb is not None:
+            self._tb.flush()
+            self._tb.close()
+            self._tb = None
+
+    def save_csv(self, path: str):
+        if not self.rows:
+            return
+        keys = sorted({k for r in self.rows for k in r})
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            f.write(",".join(keys) + "\n")
+            for r in self.rows:
+                f.write(",".join(str(r.get(k, "")) for k in keys) + "\n")
+
+
+def ppo_config(config) -> PPO.PPOConfig:
+    """The learner's PPOConfig from a `utils.config` Config."""
+    return PPO.PPOConfig(
+        lr=config.learning_rate,
+        n_steps=getattr(config, "n_steps", 64),
+        n_minibatches=getattr(config, "n_minibatches", 8),
+        n_epochs=getattr(config, "n_epochs", 4),
+        gamma=getattr(config, "gamma", 0.99),
+        gae_lambda=getattr(config, "gae_lambda", 0.95),
+        clip_eps=getattr(config, "clip_eps", 0.2),
+        max_grad_norm=float(config.grad_clip_norm),
+    )
+
+
+def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
+                     device=None, debug_nans: bool = False,
+                     callback: Optional[Callable] = None):
+    """PPO training to `config.max_episodes` iterations on `device`
+    (`config.device_type` unless given: the card by default; the env
+    must be on it).  Returns (train_state, metrics).
+
+    Each iteration's row holds the PPO metrics, env-steps/s and the ms
+    of its rollout, GAE and update; `callback(episode, row)`, when
+    given, is called after each iteration.  `debug_nans` raises on an
+    env state that the quarantine would restart."""
+    out_dir = out_dir or (config.log_path or "results")
+    cfg = ppo_config(config)
+    num_envs = config.num_envs
+    model_type = getattr(config, "model_type", "mlp") or "mlp"
+    if model_type == "cnn":
+        raise NotImplementedError(
+            "pixel PPO (model_type 'cnn') comes with the renderer and the "
+            "pixel envs, a later slice of the port")
+    device = device if device is not None else config.device_type
+    init_fn, train_iter_fn, act_fn = PPO.make_ppo(
+        env, num_envs, cfg, device=device, debug_nans=debug_nans)
+
+    def eval_policy(module, obs, generator):
+        return torch.clamp(module(obs)[0], -1.0, 1.0)
+
+    evaluate = make_evaluate(env, eval_policy, env.MAX_EPISODE_STEPS)
+
+    train_state = init_fn(config.seed)
+    env_state = env.reset(num_envs, train_state.reset_generator)
+
+    # Resume (reference baselines.py:149-161).
+    latest = CKPT.latest(out_dir)
+    if latest and config.models_path != "":
+        train_state = CKPT.restore(latest, train_state)
+        print(f"resumed from {latest}")
+
+    metrics = Metrics(tb_dir=out_dir)
+    prof = ProfilerHook()
+    sps_hist = []
+    for episode in range(1, config.max_episodes + 1):
+        prof.before(episode)
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        train_state, env_state, m = train_iter_fn(train_state, env_state,
+                                                  timings=timings)
+        dt = time.perf_counter() - t0      # the update's end synchronized
+        prof.after(episode)
+        env_steps = cfg.n_steps * num_envs
+        sps_hist.append(env_steps / dt)
+        row = dict(episode=episode, steps_per_s=env_steps / dt, **timings,
+                   **{k: float(v) for k, v in m.items()})
+        metrics.append(**row)
+        if callback is not None:
+            callback(episode, row)
+
+        if PROF and (episode % 10 == 0 or episode == 1):
+            print(f"ep {episode:5d} reward {row['mean_reward']:8.3f} "
+                  f"| {env_steps / dt:9.0f} env-steps/s "
+                  f"(median {np.median(sps_hist):9.0f})", flush=True)
+
+        if episode % config.test_interval == 0:
+            res = evaluate(train_state.module, config.seed + 2, count=10)
+            metrics.append(episode=episode,
+                           eval_reward=res.total_rewards.mean(),
+                           eval_success=res.success_rate)
+            print(f"  eval: reward {res.total_rewards.mean():8.1f} "
+                  f"success {res.success_rate:5.1f}%", flush=True)
+
+        if episode % config.checkpoint_interval == 0:
+            CKPT.save(CKPT.checkpoint_path(out_dir, episode), train_state)
+
+    metrics.save_csv(os.path.join(out_dir, "metrics.csv"))
+    metrics.close()
+    return train_state, metrics
+
+
+def train_npg_policy(config, env, out_dir=None, demos=None):
+    raise NotImplementedError(
+        "the NPG/DAPG trainer comes with the NPG/DAPG learners, a later "
+        "slice of the port")
+
+
+def train_sac_policy(config, env, out_dir=None):
+    raise NotImplementedError(
+        "the SAC trainer comes with the SAC learner and its replay "
+        "buffer, a later slice of the port")
+
+
+def train_planet_policy(config, env, out_dir=None):
+    raise NotImplementedError(
+        "the PlaNet trainer comes with the renderer and the pixel envs, "
+        "a later slice of the port")

@@ -13,8 +13,11 @@ JAX env, and NaN quarantine isolation (float32, CPU).
   most 3.1e-5 of its scale (door), efc_force 2.0e-5; at seed 6 door's
   efc_force 2.3e-4, and pen's qacc 3.0e-2 of its scale, efc_force
   0.24: there the two packages' cylinder-box contacts differ in float64
-  too (points up to 5.3e-2 apart, depths 7.2e-4), an open question of
-  the narrowphase (ROADMAP §3), not of the state API.
+  too (points up to 5.3e-2 apart, depths 7.2e-4).  Both compute the same
+  thing; a tie in the box's support gradient, decided by the sign of a
+  ~1e-18 rounding residue, sends the polish to another local maximum
+  (`tests/test_torch_cylinder_box.py` shows the flip and its margin).
+  Seed 4's bounds stay: the tie is a property of the reference.
 * Quarantine, as `tests/test_env_api.py::test_nan_quarantine_vmapped_
   isolation` holds the JAX package: NaN in env 1's qvel of 4 hammer envs
   restarts env 1 alone, everything stays finite, the next step too, and
