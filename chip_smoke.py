@@ -48,7 +48,25 @@ Phases, in order; any failure raises and the exit code is non-zero:
    iteration of 8 hammer envs (n_steps 2, 2 x 2 minibatches) on the card
    and on the CPU from the same state, weights, action noise and
    permutations: the transitions and the params after;
-7. one JSON line listing the kernels, then the device line.
+7. the learners, each at its config's widths and cut in length only:
+   7a `configs/door_npg.json` through `train_npg_policy` (512 envs,
+   policy (32, 32), CG 10; n_steps 64 -> 16, 2 iterations, a checkpoint
+   at the second, one evaluation of 10 x 5 steps), then one DAPG
+   iteration with 1024 synthetic demo pairs; 7b `configs/
+   relocate_sac.json` through `train_sac_policy` (256 envs, nets
+   (256, 256), buffer 100 000, batch 50, 16 steps and 16 updates; 2
+   iterations, a checkpoint at the second); each iteration's env-steps/s
+   and ms, iteration 2's launches, the checkpoint restored bit for bit;
+   7c a synthetic mjrl-shaped DAPG pickle through the port's loader, its
+   float64 numpy forward against `make_policy` on the card, and an
+   evaluation of it on hammer; 7d one NPG iteration (64 door envs x 2
+   steps, float32, and float64 twice on the card) and one SAC iteration
+   (8 relocate envs x 2 steps, 2 updates) card vs CPU on the same state,
+   weights and draws, stage by stage: NPG's advantages, g and a Fisher
+   product on one shared trajectory, SAC's first-update losses and
+   gradients on one shared ring, then each one's params;
+8. the launches of phases 5-7 together, one JSON line listing the
+   kernels, then the device line.
 
 Phase 3 also prints SHA-256 digests of the outputs of the factor
 kernel, the noslip kernel, the alpha-only linesearch and the
@@ -932,6 +950,25 @@ def trainer_phase(TK, envs, dev, info):
     return launches
 
 
+def _pair_fields(a, b, fields, what):
+    """Each field of `a` (card) against `b` (CPU) within PAIR_TOL, the
+    done flags equal: (max abs diff, (largest share of the tolerance, its
+    field))."""
+    use, worst = (0.0, ""), 0.0
+    for f in fields:
+        x, y = a[f], b[f]
+        if f == "done":
+            check(torch.equal(x, y), f"{what}: {f} differs")
+            continue
+        d = (x - y).abs()
+        worst = max(worst, d.max().item())
+        use = max(use, ((d / (PAIR_TOL["atol"] + PAIR_TOL["rtol"] * y.abs()))
+                        .max().item(), f))
+        torch.testing.assert_close(x, y, **PAIR_TOL,
+                                   msg=lambda m: f"{what} {f}: {m}")
+    return worst, use
+
+
 def trainer_pair(envs, dev, config, PPO, NN):
     """Phase 6, card vs CPU: one PPO iteration of PAIR_ENVS envs on each
     device from the same env state, weights, action noise and
@@ -967,16 +1004,11 @@ def trainer_pair(envs, dev, config, PPO, NN):
         out[name] = (traj, adv, [t.detach().cpu() for t in mod.parameters()],
                      {k: float(v) for k, v in metrics.items()})
     (tk, ak, pk, mk), (tp, ap, pp, mp) = out["card"], out["cpu"]
-    use, worst = (0.0, ""), 0.0
-    for f in ("obs", "action", "log_prob", "value", "reward", "trunc_boot"):
-        x, y = getattr(tk, f).cpu().double(), getattr(tp, f).double()
-        d = (x - y).abs()
-        worst = max(worst, d.max().item())
-        use = max(use, ((d / (PAIR_TOL["atol"] + PAIR_TOL["rtol"] * y.abs()))
-                        .max().item(), f))
-        torch.testing.assert_close(x, y, **PAIR_TOL,
-                                   msg=lambda m: f"trainer pair {f}: {m}")
-    check(torch.equal(tk.done.cpu(), tp.done), "trainer pair: done differs")
+    fields = ("obs", "action", "log_prob", "value", "reward", "trunc_boot",
+              "done")
+    worst, use = _pair_fields(
+        {f: getattr(tk, f).cpu().double() for f in fields},
+        {f: getattr(tp, f).double() for f in fields}, fields, "trainer pair")
     # Adam moves a parameter by at most ~lr a step whatever its gradient
     # (its first step is lr * sign(g)), so the two devices' params can
     # differ by at most 2 lr per update where a gradient component near 0
@@ -996,6 +1028,564 @@ def trainer_pair(envs, dev, config, PPO, NN):
         f"{p_err / p_bound:.3f}; the update moved them by up to "
         f"{moved:.3e}); pg_loss {mk['pg_loss']:.6f} vs {mp['pg_loss']:.6f}")
     check(p_err <= p_bound, f"trainer pair: params differ by {p_err:.3e}")
+
+
+NPG_CONFIG = os.path.join("configs", "door_npg.json")
+SAC_CONFIG = os.path.join("configs", "relocate_sac.json")
+# Phase 7's cuts (length only; every width stays).  door_npg.json sets no
+# n_steps: the JAX trainer's default, 64, is cut to 16.
+NPG_CUTS = dict(n_steps=16, max_episodes=2, checkpoint_interval=2)
+SAC_CUTS = dict(max_episodes=2, checkpoint_interval=2)
+DEMO_PAIRS, DEMO_SEED, DAPG_SEED = 1024, 5, 3
+# Card vs CPU: one iteration of a small batch on the same draws.  NPG:
+# 64 door envs x 2 steps (128 rows, more than the baseline's 82
+# features); SAC: 8 relocate envs x 2 steps, 2 updates at batch 8.
+NPG_PAIR_ENVS, NPG_PAIR_STEPS, LEARNER_PAIR_ENVS = 64, 2, 8
+SAC_PAIR_CFG = dict(steps_per_iter=2, updates_per_iter=2, batch_size=8,
+                    warmup_steps=0, buffer_size=64)
+# The bounds of the card-vs-CPU pairs, each 4x the worst over seeds 0-2
+# of its reading on the CPU (`python tests/measure_torch_learner_floors.py
+# npg_pair sac_pair`): in float32 the CPU's float32-vs-float64 gap of the
+# same iteration, in float64 the largest change that another sum order on
+# the CPU makes (the baseline solved by Cholesky or with its columns
+# reversed, the CG's dot products reversed, the Fisher's rows permuted).
+# `npg_diffs` / `sac_diffs` name the quantities.  The 10-step CG on the
+# damped Fisher turns a change in the last bit of g into 1e-6 to 1e-3 of
+# the step (float64, the CPU alone), so what comes before the CG (the
+# advantages, g, one Fisher product) is where a fault would show sharply.
+NPG_PAIR_BOUNDS = {
+    # readings: adv 5.48e-5, g 1.29e-4, fvp 1.64e-4, params 0.450 (the
+    # step moves them by up to 2.0: a sanity bound only)
+    torch.float32: dict(adv=2.2e-4, g=5.2e-4, fvp=6.6e-4, params=1.8),
+    # readings: adv 5.01e-14, g 8.95e-14, fvp 1.36e-13, params 1.70e-3
+    # (float32's gap in the params is 5.0e-2 to 0.45)
+    torch.float64: dict(adv=2.0e-13, g=3.6e-13, fvp=5.4e-13, params=6.8e-3),
+}
+# readings: critic_loss 3.43e-7, actor_loss 1.74e-7, critic_grad 2.90e-7,
+# actor_grad 1.53e-6, alpha_grad 3.24e-8, params 6.41e-5 (Adam's own
+# bound, 2 lr x 2 updates, is 1.2e-3)
+SAC_PAIR_BOUNDS = dict(critic_loss=1.4e-6, actor_loss=7.0e-7,
+                       critic_grad=1.2e-6, actor_grad=6.1e-6,
+                       alpha_grad=1.3e-7, params=2.6e-4)
+
+
+def _same_tree(a, b) -> bool:
+    """Two `checkpoint._state_dict` trees equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tree(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def learner_config(name, cuts):
+    """A committed config with `cuts` applied: (config, the cut fields'
+    values before)."""
+    from mj_envs_torch.utils.config import Config
+    config = Config().load(os.path.join(ROOT, name))
+    full = {k: getattr(config, k, None) for k in (*cuts, "test_interval")}
+    for k, v in cuts.items():
+        setattr(config, k, v)
+    config.test_interval = config.max_episodes + 1   # eval below, once
+    return config, full
+
+
+def learner_run(TK, train, config, env, out, line, **kw):
+    """`train(config, env, out)` with a callback that prints `line(row)`
+    and snapshots the launch counts after each iteration: (state, rows,
+    launches of the last iteration, seconds)."""
+    snaps, rows = [], []
+
+    def on_iteration(episode, row):
+        torch.cuda.synchronize()
+        snaps.append(dict(TK.launches))
+        rows.append(row)
+        log(f"  iteration {episode}: {row['steps_per_s']:.1f} env-steps/s; "
+            + line(row))
+
+    t0 = time.perf_counter()
+    st, _ = train(config, env, out, callback=on_iteration, **kw)
+    secs = time.perf_counter() - t0
+    last = {k: snaps[-1][k] - (snaps[-2][k] if len(snaps) > 1 else 0)
+            for k in TK.KERNELS}
+    for r in rows:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        check(not bad, f"non-finite metrics {bad}")
+    return st, rows, last, secs
+
+
+def check_launches(TK, one, what):
+    log(f"  launches of {what}: {json.dumps(one)}")
+    for name in MAIN_KERNELS:
+        check(one[name] > 0, f"kernel {name} was not launched by {what}")
+
+
+def check_restore(CKPT, out, step, fresh, state, what):
+    latest = CKPT.latest(out)
+    check(latest == CKPT.checkpoint_path(out, step), f"checkpoint: {latest}")
+    back = CKPT.restore(latest, fresh)
+    same = _same_tree(CKPT._state_dict(back), CKPT._state_dict(state))
+    log(f"  checkpoint {os.path.basename(latest)} restored: {what} bit for "
+        f"bit: {same}")
+    check(same, f"restore did not reproduce the {what}")
+
+
+def npg_phase(TK, envs, dev, info, tmp):
+    """Phase 7a: `configs/door_npg.json` through `train_npg_policy` at
+    full width, then one DAPG iteration with synthetic demos."""
+    from mj_envs_torch.algos import npg as NPG
+    from mj_envs_torch.utils import checkpoint as CKPT, eval as EV
+    from mj_envs_torch.utils import train as TT
+
+    config, full = learner_config(NPG_CONFIG, NPG_CUTS)
+    full["n_steps"] = full["n_steps"] or NPG.NPGConfig().n_steps
+    cfg = TT.npg_config(config)
+    env = envs.make(config.env_name, device=dev)
+    log(f"[7a] NPG: {NPG_CONFIG} {config.env_name}, num_envs "
+        f"{config.num_envs} (chunks of {NPG.STEP_CHUNK}), policy "
+        f"{cfg.hidden}, CG {cfg.cg_iters} steps, gamma {cfg.gamma}, lambda "
+        f"{cfg.gae_lambda}, delta {cfg.normalized_step_size}, float32; cuts: "
+        + ", ".join(f"{k} {full[k]} -> {v}" for k, v in NPG_CUTS.items())
+        + f"; eval once after training, {EVAL_COUNT} episodes of "
+        f"{EVAL_LENGTH} steps (the config: 10 of {env.MAX_EPISODE_STEPS} "
+        f"steps every {full['test_interval']} iterations)")
+    init_fn = NPG.make_npg(env, config.num_envs, cfg, device=dev)[0]
+    p0 = [t.detach().clone() for t in init_fn(config.seed).module.parameters()]
+
+    def line(r):
+        return (f"rollout {r['rollout_ms']:.1f} ms, update "
+                f"{r['update_ms']:.1f}"
+                f" ms (baseline fit and GAE {r['baseline_ms']:.1f}, gradient "
+                f"{r['gradient_ms']:.1f}, CG and step {r['cg_ms']:.1f}); "
+                f"step_size {r['step_size']:.4e}, kl {r['kl']:.4e}, quad "
+                f"{r['quad']:.4e}"
+                f", grad_norm {r['grad_norm']:.4e}, mean_reward "
+                f"{r['mean_reward']:.4f} ({info})")
+
+    out = os.path.join(tmp, "npg")
+    st, rows, one, secs = learner_run(TK, TT.train_npg_policy, config, env,
+                                      out, line)
+    check_launches(TK, one, f"NPG iteration 2 ({cfg.n_steps} steps x "
+                   f"{max(1, config.num_envs // NPG.STEP_CHUNK)} chunk x "
+                   f"{env.FRAME_SKIP} substep)")
+    check_restore(CKPT, out, 2, init_fn(config.seed + 99), st,
+                  "policy, iteration and generators")
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(st.module.parameters(), p0))
+    t0 = time.perf_counter()
+    res = EV.make_evaluate(
+        env, lambda m, obs, g: torch.clamp(m(obs)[0], -1.0, 1.0),
+        EVAL_LENGTH)(st.module, config.seed + 2, count=EVAL_COUNT)
+    eval_s = time.perf_counter() - t0
+    log(f"  training {secs:.1f} s; params moved by up to {moved:.3e}; eval "
+        f"{EVAL_COUNT} x {EVAL_LENGTH} steps in {eval_s:.1f} s: reward "
+        f"{res.total_rewards.mean():.3f}, success {res.success_rate:.1f} %")
+    check(moved > 0 and all(r["step_size"] > 0 for r in rows),
+          "the NPG step did not move the params")
+    check(res.obs.shape == (EVAL_COUNT, EVAL_LENGTH, env.OBS_DIM)
+          and np.isfinite(res.obs).all()
+          and np.isfinite(res.total_rewards).all(), "NPG eval result")
+
+    # DAPG: the same trainer with demos, one iteration.
+    gen = torch.Generator(device=dev).manual_seed(DEMO_SEED)
+    demo_obs = env.reset(DEMO_PAIRS, gen).obs
+    demos = {"obs": demo_obs + 0.01 * torch.randn(
+        demo_obs.shape, generator=gen, device=dev),
+        "actions": 2.0 * torch.rand(DEMO_PAIRS, env.nu, generator=gen,
+                                    device=dev) - 1.0}
+    config.max_episodes, config.checkpoint_interval = 1, 2
+    demo_w = (torch.tensor(cfg.lam1, dtype=torch.float32) ** 0.0
+              * cfg.lam0).item()
+    log(f"  DAPG: {DEMO_PAIRS} synthetic demo pairs (door reset obs + "
+        f"0.01 N(0, 1), actions U(-1, 1), seed {DEMO_SEED}), demo weight "
+        f"lam0 * lam1^k = {cfg.lam0} * {cfg.lam1}^0 = {demo_w:.6g}:")
+    st_d, _, _, secs_d = learner_run(TK, TT.train_npg_policy, config, env,
+                                     os.path.join(tmp, "dapg"), line,
+                                     demos=demos)
+    check(st_d.iteration == 1, "DAPG iteration count")
+    log(f"  DAPG iteration in {secs_d:.1f} s")
+
+
+def sac_phase(TK, envs, dev, info, tmp):
+    """Phase 7b: `configs/relocate_sac.json` through `train_sac_policy`
+    at full width."""
+    from mj_envs_torch.algos import sac as SAC
+    from mj_envs_torch.utils import checkpoint as CKPT
+    from mj_envs_torch.utils import train as TT
+
+    config, full = learner_config(SAC_CONFIG, SAC_CUTS)
+    cfg = TT.sac_config(config)
+    env = envs.make(config.env_name, device=dev)
+    log(f"[7b] SAC: {SAC_CONFIG} {config.env_name}, num_envs "
+        f"{config.num_envs}, nets {cfg.hidden}, buffer {cfg.buffer_size}, "
+        f"batch {cfg.batch_size} (the Config's batch_size, as the JAX "
+        f"trainer reads it), steps_per_iter {cfg.steps_per_iter}, "
+        f"updates_per_iter {cfg.updates_per_iter}, warm-up "
+        f"{cfg.warmup_steps} env steps, lr {cfg.lr}, float32; cuts: "
+        + ", ".join(f"{k} {full[k]} -> {v}" for k, v in SAC_CUTS.items())
+        + f"; no eval (the config: every {full['test_interval']} "
+        "iterations)")
+    init_fn = SAC.make_sac(env, config.num_envs, cfg, device=dev)[0]
+    p0 = [t.detach().clone() for t in init_fn(config.seed).actor.parameters()]
+
+    def line(r):
+        return (f"collect {r['collect_ms']:.1f} ms, update "
+                f"{r['update_ms']:.1f}"
+                f" ms; replay_size {r['replay_size']:.0f}, alpha "
+                f"{r['alpha']:.6f}, critic_loss {r['critic_loss']:.4f}, "
+                f"actor_loss {r['actor_loss']:.4f}, mean_reward "
+                f"{r['mean_reward']:.4f} ({info})")
+
+    out = os.path.join(tmp, "sac")
+    st, rows, one, secs = learner_run(TK, TT.train_sac_policy, config, env,
+                                      out, line)
+    check_launches(TK, one, f"SAC iteration 2 ({cfg.steps_per_iter} steps "
+                   f"x 1 chunk x {env.FRAME_SKIP} substeps)")
+    check_restore(CKPT, out, 2, init_fn(config.seed + 99), st,
+                  "nets, optimizers, log_alpha, replay ring and env steps")
+    moved = max((a - b).abs().max().item()
+                for a, b in zip(st.actor.parameters(), p0))
+    log(f"  training {secs:.1f} s; actor moved by up to {moved:.3e}; env "
+        f"steps {st.env_steps}, ring head {st.replay.idx}, size "
+        f"{st.replay.size}")
+    check(moved > 0 and rows[-1]["critic_loss"] > 0, "SAC did not update")
+
+
+def dapg_policy_phase(TK, envs, dev, info, tmp):
+    """Phase 7c: a synthetic mjrl-shaped pickle loaded by the port's
+    loader, its numpy forward against `make_policy` on the card, and an
+    evaluation of it on hammer."""
+    from mj_envs_torch.algos import dapg as DAPG
+    from mj_envs_torch.utils import eval as EV
+
+    path = write_mjrl_pickle(os.path.join(tmp, "hammer-v0.pickle"),
+                             DAPG_SEED)
+    act, params = DAPG.load_policy("hammer", device=dev, root=tmp)
+    obs = np.random.default_rng(DAPG_SEED).standard_normal((512, 46))
+    x = (obs - params["in_shift"]) / (params["in_scale"] + 1e-8)
+    for w, b in params["layers"][:-1]:
+        x = np.tanh(x @ w.T + b)
+    w, b = params["layers"][-1]
+    want = (x @ w.T + b) * params["out_scale"] + params["out_shift"]
+    got = act(torch.as_tensor(obs, dtype=torch.float32, device=dev))
+    rel, err = rel_err(got.cpu(), torch.as_tensor(want))
+    log(f"[7c] DAPG policy: {os.path.basename(path)} (46 -> 32 -> 32 -> 26, "
+        f"tanh, seed {DAPG_SEED}) through load_dapg_params; make_policy on "
+        f"the card vs its numpy float64 forward, 512 obs: {rel:.3e} rel "
+        f"(max abs {err:.3e}; tolerance 1e-5 rel)")
+    check(rel <= 1e-5, f"DAPG policy: {rel:.3e} rel")
+    env = envs.make("hammer-v0", device=dev)
+    t0 = time.perf_counter()
+    res = EV.make_evaluate(env, EV.dapg_policy_apply(act), EVAL_LENGTH)(
+        None, 0, count=EVAL_COUNT)
+    log(f"  eval on hammer-v0, {EVAL_COUNT} x {EVAL_LENGTH} steps in "
+        f"{time.perf_counter() - t0:.1f} s: reward "
+        f"{res.total_rewards.mean():.3f}, success {res.success_rate:.1f} %")
+    check(np.isfinite(res.obs).all() and np.isfinite(res.total_rewards).all()
+          and res.obs.shape == (EVAL_COUNT, EVAL_LENGTH, env.OBS_DIM),
+          "DAPG eval result")
+
+
+def npg_pair(envs, devices, dtype=torch.float32, seed=0,
+             n=NPG_PAIR_ENVS, steps=NPG_PAIR_STEPS):
+    """One NPG iteration of `n` door envs x `steps` steps on each of
+    `devices` in turn, in `dtype`, from the same env state, weights and
+    action normals (made in float64 on the CPU and cast).  Each run holds
+    its trajectory, advantages, g, quad, step size and params after; and
+    "same", the update's advantages and g from the last run's trajectory
+    and F g at the old params on its observations and g (the same inputs
+    on every device).  Returns (runs, params before)."""
+    from mj_envs_torch.algos import npg as NPG
+    cfg = NPG.NPGConfig(n_steps=steps)
+    env64 = envs.make("door-v0", device="cpu", dtype=torch.float64)
+    st64 = env64.reset(n, env64.generator(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    mod64 = NPG.NPGPolicy(env64.OBS_DIM, env64.nu, cfg.hidden,
+                          cfg.init_log_std, generator=gen, device="cpu",
+                          dtype=torch.float64)
+    noise = torch.randn(steps, n, env64.nu, generator=gen,
+                        dtype=torch.float64)
+    old = NPG.npg_params_to_numpy(mod64)
+    out = lambda x: x.detach().cpu().double()
+    runs = []
+    for d in devices:
+        env = envs.make("door-v0", device=d, dtype=dtype)
+        cast = lambda x: (x.to(dtype) if x.is_floating_point() else x).to(d)
+        mod = NPG.npg_params_from_numpy(old, device=d, dtype=dtype)
+        _, it, _ = NPG.make_npg(env, n, cfg, device=d)
+        state = NPG.NPGState(mod, 0, torch.Generator(device=d),
+                             env.generator(seed + 2))
+        ex = {}
+        _, es, m = it(state, st64.map(cast), noise=cast(noise), extras=ex)
+        traj = NPG.Transition(*(x.cpu() for x in ex["trajectory"]))
+        runs.append(dict(
+            traj={f: out(getattr(traj, f))
+                  for f in ("obs", "action", "reward", "final_obs", "done")},
+            adv=out(ex["advantages"]), g=out(ex["g"]),
+            params=[out(p) for p in mod.parameters()],
+            metrics={k: float(v) for k, v in m.items()}))
+    ref_es = es.map(lambda x: x.cpu())
+    for d, r in zip(devices, runs):
+        cast = lambda x: (x.to(dtype) if x.is_floating_point() else x).to(d)
+        ex = {}
+        NPG.update(cfg, NPG.npg_params_from_numpy(old, d, dtype),
+                   NPG.Transition(*(cast(x) for x in traj)), ref_es.map(cast),
+                   extras=ex)
+        fvp = NPG.make_fisher_vp(NPG.npg_params_from_numpy(old, d, dtype),
+                                 cast(traj.obs.reshape(-1, env64.OBS_DIM)),
+                                 cfg.cg_damping)
+        r["same"] = dict(adv=out(ex["advantages"]), g=out(ex["g"]),
+                         fvp=out(fvp(runs[-1]["g"].to(d, dtype))))
+    return runs, [p.detach().clone() for p in mod64.parameters()]
+
+
+def npg_diffs(a, b, before):
+    """Run `a` against run `b` of `npg_pair`, stage by stage: the
+    transitions (max abs); max |a - b| / max |b| of each run's own
+    advantages and g (iter_adv, iter_g), and of the advantages, g and
+    F g from the same trajectory (adv, g, fvp); quad and the step size
+    relative; the params after (max abs), and how far the step moved
+    `b`'s."""
+    ma, mb = a["metrics"], b["metrics"]
+    same = {k: rel_err(a["same"][k], b["same"][k])[0]
+            for k in ("adv", "g", "fvp")}
+    return dict(
+        transitions=max((a["traj"][f] - b["traj"][f]).abs().max().item()
+                        for f in ("obs", "action", "reward", "final_obs")),
+        iter_adv=rel_err(a["adv"], b["adv"])[0],
+        iter_g=rel_err(a["g"], b["g"])[0], **same,
+        quad=abs(ma["quad"] / mb["quad"] - 1.0),
+        step=abs(ma["step_size"] / mb["step_size"] - 1.0),
+        params=max((x - y).abs().max().item()
+                   for x, y in zip(a["params"], b["params"])),
+        moved=max((x - y).abs().max().item()
+                  for x, y in zip(b["params"], before)))
+
+
+def sac_pair(envs, devices, dtype=torch.float32, seed=0,
+             n=LEARNER_PAIR_ENVS):
+    """One SAC iteration (`SAC_PAIR_CFG`: 2 collect steps, 2 updates at
+    batch 8, no warm-up) of `n` relocate envs on each of `devices` in
+    turn, in `dtype`, from the same env state, weights and draws: per run
+    the ring's contents, the params after and the metrics; and "first",
+    the first update's losses and gradients (critic, actor, log_alpha)
+    before its Adam steps, from the initial weights on the last run's
+    ring (the same inputs on every device)."""
+    from mj_envs_torch.algos import sac as SAC
+    cfg = SAC.SACConfig(**SAC_PAIR_CFG)
+    env_p = envs.make("relocate-v0", device="cpu", dtype=torch.float64)
+    st_p = env_p.reset(n, env_p.generator(seed))
+    params = SAC.sac_params_to_numpy(
+        SAC.make_sac(env_p, n, cfg, device="cpu")[0](seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    S, U, nb, nu = cfg.steps_per_iter, cfg.updates_per_iter, \
+        cfg.batch_size, env_p.nu
+    draws = dict(policy=torch.randn(S, n, nu, generator=gen),
+                 uniform=2.0 * torch.rand(S, n, nu, generator=gen) - 1.0,
+                 sel=torch.randint(0, S * n, (U, nb), generator=gen),
+                 next=torch.randn(U, nb, nu, generator=gen),
+                 actor=torch.randn(U, nb, nu, generator=gen))
+    draws = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in draws.items()}
+    fields = ("obs", "action", "reward", "next_obs", "done")
+    runs = []
+    for d in devices:
+        env = envs.make("relocate-v0", device=d, dtype=dtype)
+        cast = lambda x: (x.to(dtype) if x.is_floating_point() else x).to(d)
+        init_fn, it, _ = SAC.make_sac(env, n, cfg, device=d)
+        st = SAC.sac_params_from_numpy(init_fn(seed), params)
+        st, _, m = it(st, st_p.map(cast), draws=draws)
+        k = st.replay.size
+        runs.append(dict(
+            ring={f: getattr(st.replay, f)[:k].detach().cpu().double()
+                  for f in fields},
+            params=[t.detach().cpu().double() for mod in
+                    (st.actor, st.critic, st.target_critic)
+                    for t in mod.parameters()]
+            + [st.log_alpha.detach().cpu().double()],
+            metrics={k: float(v) for k, v in m.items()}))
+    ring = runs[-1]["ring"]
+    for d, r in zip(devices, runs):
+        init_fn = SAC.make_sac(envs.make("relocate-v0", device=d,
+                                         dtype=dtype), n, cfg, device=d)[0]
+        st = SAC.sac_params_from_numpy(init_fn(seed), params)
+        st.replay.store(*(ring[f].to(d, dtype) if f != "done"
+                          else ring[f].to(d, torch.bool) for f in fields))
+        m = SAC._update_once(cfg, st, draws["sel"][0].to(d),
+                             draws["next"][0].to(d), draws["actor"][0].to(d))
+        grad = lambda mod: torch.cat([p.grad.reshape(-1) for p in
+                                      mod.parameters()]).cpu().double()
+        r["first"] = dict(critic_loss=float(m["critic_loss"]),
+                          actor_loss=float(m["actor_loss"]),
+                          critic_grad=grad(st.critic),
+                          actor_grad=grad(st.actor),
+                          alpha_grad=st.log_alpha.grad.cpu().double())
+    return runs, cfg
+
+
+def sac_diffs(a, b):
+    """Run `a` against run `b` of `sac_pair`: the ring (max abs); the
+    first update's losses relative and its gradients as max |a - b| /
+    max |b|; the params after both updates (max abs)."""
+    fa, fb = a["first"], b["first"]
+    return dict(
+        ring=max((a["ring"][f] - b["ring"][f]).abs().max().item()
+                 for f in ("obs", "action", "reward", "next_obs")),
+        critic_loss=abs(fa["critic_loss"] / fb["critic_loss"] - 1.0),
+        actor_loss=abs(fa["actor_loss"] / fb["actor_loss"] - 1.0),
+        critic_grad=rel_err(fa["critic_grad"], fb["critic_grad"])[0],
+        actor_grad=rel_err(fa["actor_grad"], fb["actor_grad"])[0],
+        alpha_grad=rel_err(fa["alpha_grad"], fb["alpha_grad"])[0],
+        params=max((x - y).abs().max().item()
+                   for x, y in zip(a["params"], b["params"])))
+
+
+def _within(diffs, bounds, what):
+    """Each bounded reading of `diffs` within its bound: the readings and
+    the share of each bound used, as text."""
+    for k, v in bounds.items():
+        check(diffs[k] <= v, f"{what}: {k} differs by {diffs[k]:.3e} "
+              f"(bound {v:.1e})")
+    return ", ".join(f"{k} {diffs[k]:.3e} (bound {v:.1e}, share "
+                     f"{diffs[k] / v:.3f})" for k, v in bounds.items())
+
+
+def learner_pairs(envs, dev):
+    """Phase 7d: one NPG iteration (float32, then float64 twice on the
+    card) and one SAC iteration card vs CPU on the same state, weights
+    and draws, stage by stage."""
+    size = f"{NPG_PAIR_ENVS} envs x {NPG_PAIR_STEPS} steps"
+    runs, before = npg_pair(envs, [dev, "cpu"])
+    k, p = runs
+    worst, use = _pair_fields(k["traj"], p["traj"],
+                              ("obs", "action", "reward", "final_obs",
+                               "done"), "NPG pair")
+    d = npg_diffs(k, p, before)
+    log(f"[7d] card vs CPU, NPG on door-v0, {size}, policy (32, 32), same "
+        f"draws: transitions max abs diff {worst:.3e}, largest share of the "
+        f"tolerance (rtol 1e-3, atol 2e-3) used {use[0]:.3f} ({use[1]}); "
+        f"each run's advantages {d['iter_adv']:.3e} and g {d['iter_g']:.3e}"
+        " apart relative; on the same trajectory "
+        + _within(d, NPG_PAIR_BOUNDS[torch.float32], "NPG pair")
+        + f"; quad {k['metrics']['quad']:.6e} vs {p['metrics']['quad']:.6e}"
+        f", step_size {d['step']:.3e} apart relative; the step moved the "
+        f"params by up to {d['moved']:.3e}")
+
+    runs, before = npg_pair(envs, [dev, dev, "cpu"], torch.float64)
+    twice = npg_diffs(runs[0], runs[1], before)
+    for f in ("obs", "action", "reward", "final_obs", "done"):
+        torch.testing.assert_close(runs[0]["traj"][f], runs[2]["traj"][f],
+                                   **F64_TOL)
+    d = npg_diffs(runs[0], runs[2], before)
+    log(f"  float64 (no kernel), card vs CPU: transitions max abs diff "
+        f"{d['transitions']:.3e} (tolerance rtol / atol 1e-8), each run's "
+        f"advantages {d['iter_adv']:.3e} and g {d['iter_g']:.3e} apart "
+        "relative; on the same trajectory "
+        + _within(d, NPG_PAIR_BOUNDS[torch.float64], "NPG pair, float64")
+        + f"; quad {d['quad']:.3e} and step_size {d['step']:.3e} apart "
+        f"relative; the card twice: params max abs diff "
+        f"{twice['params']:.3e}, g {twice['g']:.3e}")
+    check(twice["params"] <= NPG_PAIR_BOUNDS[torch.float64]["params"],
+          f"NPG float64 on the card twice: {twice['params']:.3e}")
+
+    runs, cfg = sac_pair(envs, [dev, "cpu"])
+    k, p = runs
+    worst, use = _pair_fields(k["ring"], p["ring"],
+                              ("obs", "action", "reward", "next_obs", "done"),
+                              "SAC pair")
+    d = sac_diffs(k, p)
+    adam = 2.0 * cfg.lr * cfg.updates_per_iter
+    log(f"  card vs CPU, SAC on relocate-v0, {LEARNER_PAIR_ENVS} envs x "
+        f"{cfg.steps_per_iter} steps, {cfg.updates_per_iter} updates at "
+        f"batch {cfg.batch_size}, nets (256, 256), same draws: ring max abs "
+        f"diff {worst:.3e}, largest share of the tolerance used {use[0]:.3f}"
+        f" ({use[1]}); the first update on the same ring: "
+        + _within(d, SAC_PAIR_BOUNDS, "SAC pair")
+        + f" (Adam's own bound 2 lr x {cfg.updates_per_iter} updates = "
+        f"{adam:.1e}); critic_loss {k['first']['critic_loss']:.6f} vs "
+        f"{p['first']['critic_loss']:.6f}")
+    check(d["params"] <= adam, f"SAC pair: params differ by {d['params']}")
+
+
+def learners_phase(TK, envs, dev, info):
+    """Phase 7: the NPG / DAPG and SAC trainers and the DAPG policy on the
+    card, then card vs CPU.  Returns the launches of 7a-7c (training and
+    evaluation)."""
+    import tempfile
+    TK.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        npg_phase(TK, envs, dev, info, tmp)
+        sac_phase(TK, envs, dev, info, tmp)
+        dapg_policy_phase(TK, envs, dev, info, tmp)
+    torch.cuda.synchronize()
+    launches = dict(TK.launches)
+    log(f"  launches of phase 7a-7c: {json.dumps(launches)}")
+    learner_pairs(envs, dev)
+    return launches
+
+
+def write_mjrl_pickle(path, seed, sizes=(46, 32, 32, 26)):
+    """A synthetic pickle shaped as the reference's DAPG policies: an mjrl
+    `gaussian_mlp.MLP` holding an `fc_network.FCNetwork` (a tanh MLP of
+    `sizes` with input and output shifts and scales) and a log_std, all
+    drawn from `seed`.  The mjrl classes are stand-ins, registered in
+    `sys.modules` only while pickling."""
+    import math
+    import pickle
+    import types
+
+    from torch import nn
+    names = ("mjrl", "mjrl.utils", "mjrl.utils.fc_network", "mjrl.policies",
+             "mjrl.policies.gaussian_mlp")
+    mods = {n: types.ModuleType(n) for n in names}
+    gen = torch.Generator().manual_seed(seed)
+    rand = lambda *s: torch.randn(*s, generator=gen, dtype=torch.float64)
+
+    class FCNetwork(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.obs_dim, self.act_dim = sizes[0], sizes[-1]
+            with torch.random.fork_rng(devices=[]):
+                self.fc_layers = nn.ModuleList(
+                    nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+            with torch.no_grad():
+                for lyr in self.fc_layers:
+                    n_in = lyr.weight.shape[1]
+                    lyr.weight.copy_(rand(*lyr.weight.shape)
+                                     / math.sqrt(n_in))
+                    lyr.bias.copy_(0.1 * rand(lyr.bias.shape[0]))
+            self.nonlinearity = torch.tanh
+            self.in_shift, self.out_shift = rand(sizes[0]), 0.1 * rand(
+                sizes[-1])
+            self.in_scale = 0.5 + rand(sizes[0]).abs()
+            self.out_scale = 0.5 + rand(sizes[-1]).abs()
+
+    class MLP:
+        def __init__(self):
+            self.n, self.m = sizes[0], sizes[-1]
+            self.model = FCNetwork()
+            self.log_std = -1.0 + 0.1 * rand(sizes[-1])
+
+    for cls, mod in ((FCNetwork, "mjrl.utils.fc_network"),
+                     (MLP, "mjrl.policies.gaussian_mlp")):
+        cls.__module__, cls.__qualname__ = mod, cls.__name__
+        setattr(mods[mod], cls.__name__, cls)
+    before = {n: sys.modules.get(n) for n in names}
+    sys.modules.update(mods)
+    try:
+        with open(path, "wb") as f:
+            pickle.dump(MLP(), f)
+    finally:
+        for n, m in before.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+    return path
 
 
 def main():
@@ -1049,11 +1639,11 @@ def main():
             total[name] += n
     log(json.dumps({"env_steps_per_s": rates, "gpu": info}))
 
-    trainer = trainer_phase(TK, envs, dev, info)
-    for name, n in trainer.items():
-        total[name] += n
-    log(f"[7] launches: main path (phase 5) and trainer (phase 6) "
-        f"together: {json.dumps(total)}")
+    for phase in (trainer_phase, learners_phase):
+        for name, n in phase(TK, envs, dev, info).items():
+            total[name] += n
+    log(f"[8] launches: main path (phase 5), PPO trainer (phase 6) and "
+        f"learners (phase 7) together: {json.dumps(total)}")
     for e in entries:
         e["launches"] = total[e["name"]]
 

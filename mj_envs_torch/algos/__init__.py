@@ -1,3 +1,3 @@
 """Learners of the PyTorch port (`mj_envs_tpu/algos/`): the state-vector
-actor-critic and PPO.  The pixel PPO, NPG/DAPG, SAC and PlaNet come in
-later slices of the port."""
+actor-critic and PPO, NPG/DAPG with the DAPG policy loader, and SAC.
+The pixel PPO and PlaNet come in later slices of the port."""

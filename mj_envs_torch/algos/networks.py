@@ -2,15 +2,18 @@
 (`mj_envs_tpu/algos/networks.py:1-72`, the state-vector half).
 
 The JAX package keeps its MLPs as pytrees of {"w": (in, out), "b":
-(out,)} layers; here they are `nn.Linear` layers, whose weight is
-(out, in).  `actor_critic_from_numpy` / `actor_critic_to_numpy` carry a
-JAX parameter tree across and back, transposing each weight.  The CNN
-torso of the pixel policy comes with the renderer's slice.
+(out,)} layers; here an MLP is an `nn.ModuleList` of `nn.Linear` layers,
+whose weight is (out, in), applied with a chosen activation (tanh for
+the actor-critic and NPG, relu for SAC).  `mlp_from_numpy` /
+`mlp_to_numpy` and `actor_critic_from_numpy` / `actor_critic_to_numpy`
+carry a JAX layer list or parameter tree across and back, transposing
+each weight.  The CNN torso of the pixel policy comes with the
+renderer's slice.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +46,8 @@ def _init_linear(layer: nn.Linear, generator: torch.Generator,
 
 def _mlp(sizes: Sequence[int], out_scale: float, generator, device,
          dtype) -> nn.ModuleList:
+    """`mlp_init` (:24-31): sizes = (in, h1, ..., out), hidden layers
+    scaled by sqrt(2), the last by `out_scale`."""
     layers = nn.ModuleList(
         nn.Linear(sizes[i], sizes[i + 1], device=device, dtype=dtype)
         for i in range(len(sizes) - 1))
@@ -52,9 +57,11 @@ def _mlp(sizes: Sequence[int], out_scale: float, generator, device,
     return layers
 
 
-def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+def _mlp_apply(layers: nn.ModuleList, x: torch.Tensor,
+               activation: Callable = torch.tanh) -> torch.Tensor:
+    """`mlp_apply` (:34-38)."""
     for layer in layers[:-1]:
-        x = torch.tanh(layer(x))
+        x = activation(layer(x))
     return layers[-1](x)
 
 
@@ -108,16 +115,36 @@ def gaussian_sample(mean, log_std, generator: Optional[torch.Generator],
     return mean + torch.exp(log_std) * noise
 
 
-def _layers_to_numpy(layers: nn.ModuleList):
+def mlp_to_numpy(layers: nn.ModuleList) -> List[Dict]:
+    """The JAX package's layer list [{"w": (in, out), "b": (out,)}]."""
     return [{"w": lyr.weight.detach().cpu().numpy().T.copy(),
              "b": lyr.bias.detach().cpu().numpy().copy()} for lyr in layers]
+
+
+def _copy_layers(layers: nn.ModuleList, tree):
+    with torch.no_grad():
+        for lyr, p in zip(layers, tree):
+            lyr.weight.copy_(torch.as_tensor(np.array(p["w"]).T))
+            lyr.bias.copy_(torch.as_tensor(np.array(p["b"])))
+
+
+def mlp_from_numpy(tree, device="cuda", dtype=torch.float32
+                   ) -> nn.ModuleList:
+    """An MLP holding `tree`, a JAX layer list of arrays (as `mlp_init`
+    returns, or `mlp_to_numpy`)."""
+    sizes = [np.shape(tree[0]["w"])[0]] + [np.shape(p["w"])[1] for p in tree]
+    layers = nn.ModuleList(
+        nn.Linear(sizes[i], sizes[i + 1], device=device, dtype=dtype)
+        for i in range(len(sizes) - 1))
+    _copy_layers(layers, tree)
+    return layers
 
 
 def actor_critic_to_numpy(module: ActorCritic) -> Dict:
     """The JAX package's parameter tree: {"actor": [{"w": (in, out),
     "b": (out,)}, ...], "critic": [...], "log_std": (act_dim,)}."""
-    return {"actor": _layers_to_numpy(module.actor),
-            "critic": _layers_to_numpy(module.critic),
+    return {"actor": mlp_to_numpy(module.actor),
+            "critic": mlp_to_numpy(module.critic),
             "log_std": module.log_std.detach().cpu().numpy().copy()}
 
 
@@ -135,10 +162,8 @@ def actor_critic_from_numpy(params: Dict, device="cuda",
                          f"{crit_hidden}")
     module = ActorCritic(obs_dim, act_dim, hidden, device=device,
                          dtype=dtype)
+    _copy_layers(module.actor, actor)
+    _copy_layers(module.critic, critic)
     with torch.no_grad():
-        for layers, tree in ((module.actor, actor), (module.critic, critic)):
-            for lyr, p in zip(layers, tree):
-                lyr.weight.copy_(torch.as_tensor(np.array(p["w"]).T))
-                lyr.bias.copy_(torch.as_tensor(np.array(p["b"])))
         module.log_std.copy_(torch.as_tensor(np.array(params["log_std"])))
     return module

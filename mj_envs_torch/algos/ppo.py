@@ -70,15 +70,22 @@ class Transition(NamedTuple):
     trunc_boot: torch.Tensor   # V(final_obs) at pure truncations, else 0
 
 
-def check_device(env: AdroitEnv, device) -> torch.device:
-    """The device a learner runs on: the env's, which must be `device`
-    (the card unless the caller asks for the CPU)."""
+def require_device(device) -> torch.device:
+    """`device` as a torch.device; raises where it is the card and there
+    is none (no fallback to the CPU)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port's learners run on the card by "
             "default; pass device='cpu' (and an env made on the CPU) to "
             "run the plain CPU path")
+    return device
+
+
+def check_device(env: AdroitEnv, device) -> torch.device:
+    """The device a learner runs on: the env's, which must be `device`
+    (the card unless the caller asks for the CPU)."""
+    device = require_device(device)
     if env.device.type != device.type:
         raise ValueError(f"the env is on {env.device}, the learner was "
                          f"asked for {device}")

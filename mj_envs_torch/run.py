@@ -1,16 +1,21 @@
 """Top-level training entry point of the PyTorch port
-(`mj_envs_tpu/run.py`, the `ppo` branch):
+(`mj_envs_tpu/run.py`):
 
     python -m mj_envs_torch.run configs/hammer_ppo.json ppo
+    python -m mj_envs_torch.run configs/door_npg.json npg
+    python -m mj_envs_torch.run configs/relocate_sac.json sac
+    python -m mj_envs_torch.run configs/door_npg.json dapg
 
-Trains on the card named by the config's `device_type` ("cuda" unless
-the config says "cpu").  The other policy types of the JAX package
-(dapg, npg, sac, planet) exit with a message naming the slice of the
-port that brings them.
+Policy types: ppo, npg (natural policy gradient), sac (soft
+actor-critic), dapg or default (evaluate the pretrained DAPG policy of
+the config's task, from the reference checkout's pickles).  Runs on the
+card named by the config's `device_type` ("cuda" unless the config says
+"cpu").  planet exits with a message naming the slice of the port that
+brings it.
 
 MJE_DEBUG_NANS=1 turns on `torch.autograd.set_detect_anomaly` (a
 backward op that produces NaN raises with the forward op's traceback)
-and makes a rollout step raise FloatingPointError on a non-finite env
+and makes a PPO rollout step raise FloatingPointError on a non-finite env
 state, which the quarantine would otherwise restart silently
 (`envs/base.py` `step_auto_reset`).
 """
@@ -21,12 +26,9 @@ import sys
 import time
 
 LATER = {
-    "dapg": "the DAPG policies come with the NPG/DAPG learners",
-    "default": "the DAPG policies come with the NPG/DAPG learners",
-    "npg": "the NPG/DAPG learners",
-    "sac": "the SAC learner and its replay buffer",
     "planet": "PlaNet comes with the renderer and the pixel envs",
 }
+POLICY_TYPES = ("ppo", "npg", "sac", "dapg", "default")
 
 
 def main(argv):
@@ -41,7 +43,7 @@ def main(argv):
     if policy_type in LATER:
         sys.exit(f"policy type {policy_type!r} is not in the PyTorch port "
                  f"yet: {LATER[policy_type]}, a later slice of the port")
-    if policy_type != "ppo":
+    if policy_type not in POLICY_TYPES:
         raise ValueError(f"unknown policy type {policy_type}")
 
     debug_nans = os.environ.get("MJE_DEBUG_NANS", "") not in ("", "0")
@@ -69,9 +71,26 @@ def main(argv):
     config.save(os.path.join(out_dir, "config.json"))
 
     t0 = time.time()
-    from mj_envs_torch.utils.train import train_ppo_policy
-    train_ppo_policy(config, env, out_dir, device=config.device_type,
-                     debug_nans=debug_nans)
+    if policy_type == "ppo":
+        from mj_envs_torch.utils.train import train_ppo_policy
+        train_ppo_policy(config, env, out_dir, debug_nans=debug_nans)
+    elif policy_type in ("dapg", "default"):
+        from mj_envs_torch.algos import dapg
+        from mj_envs_torch.utils.eval import dapg_policy_apply, make_evaluate
+        task = config.env_name.replace("-v0", "")
+        act_fn, _ = dapg.load_policy(task, device=config.device_type,
+                                     dtype=env.dtype)
+        evaluate = make_evaluate(env, dapg_policy_apply(act_fn),
+                                 env.MAX_EPISODE_STEPS)
+        res = evaluate(None, config.seed, count=10)
+        print(f"dapg eval: reward {res.total_rewards.mean():.1f} "
+              f"success {res.success_rate:.1f}%")
+    elif policy_type == "npg":
+        from mj_envs_torch.utils.train import train_npg_policy
+        train_npg_policy(config, env, out_dir)
+    else:
+        from mj_envs_torch.utils.train import train_sac_policy
+        train_sac_policy(config, env, out_dir)
     print(f"done in {time.time() - t0:.0f}s -> {out_dir}")
 
 

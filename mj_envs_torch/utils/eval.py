@@ -6,8 +6,8 @@ and `success |= goal_achieved` per episode, trajectories returned.  Here
 stepped with the plain `env.step` (no auto-reset: the episode has a
 fixed length).  The env-level success metric (% of paths with more than
 SUCCESS_STEPS goal-achieved steps) comes from the same rollout.  The
-pixel, PlaNet and DAPG evaluators and the `run_eval` CLI come in later
-slices of the port.
+DAPG policy goes through `dapg_policy_apply`; the pixel and PlaNet
+evaluators and the `run_eval` CLI come in later slices of the port.
 """
 from __future__ import annotations
 
@@ -72,3 +72,12 @@ def _finish_eval(env, obs, rew, goal, done, qpos) -> EvalResult:
     return EvalResult(total_rewards=total, success_any=success_any,
                       success_rate=success_rate, goal_achieved=goal,
                       obs=obs, qpos=qpos, reward=rew)
+
+
+def dapg_policy_apply(act_fn: Callable):
+    """Wrap a DAPG deterministic policy (`algos.dapg.make_policy`) into
+    the evaluate() signature, its action clipped to [-1, 1]."""
+    def apply(params, obs, generator):
+        del params, generator
+        return torch.clamp(act_fn(obs), -1.0, 1.0)
+    return apply

@@ -1,13 +1,14 @@
-"""Training loop of the PyTorch port (`mj_envs_tpu/utils/train.py:
-31-195`): the PPO trainer on state observations.
+"""Training loops of the PyTorch port (`mj_envs_tpu/utils/train.py:
+31-283`): the PPO, NPG/DAPG and SAC trainers on state observations.
 
-One PPO "episode" is one iteration over `num_envs` envs on the env's
-device (rollout + GAE + minibatch epochs, `algos/ppo.py`); the host loop
+One "episode" is one learner iteration over `num_envs` envs on the env's
+device (`algos/ppo.py`, `algos/npg.py`, `algos/sac.py`); the host loop
 keeps the reference cadence: evaluation every `test_interval`,
-checkpoints every `checkpoint_interval`, metrics logging, resume from
-the latest checkpoint when `models_path` is set.  Pixel PPO
-(`model_type == "cnn"`), NPG/DAPG, SAC and PlaNet come in later slices
-of the port and raise here.
+checkpoints every `checkpoint_interval`, metrics logging.  PPO resumes
+from the latest checkpoint when `models_path` is set; the NPG and SAC
+loop has no resume, as the JAX package's has none.  Pixel PPO
+(`model_type == "cnn"`) and PlaNet come in later slices of the port and
+raise here.
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..algos import npg as NPG
 from ..algos import ppo as PPO
+from ..algos import sac as SAC
 from ..envs.base import AdroitEnv
 from . import checkpoint as CKPT
 from .eval import make_evaluate
@@ -111,11 +114,11 @@ def ppo_config(config) -> PPO.PPOConfig:
 
 
 def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
-                     device=None, debug_nans: bool = False,
+                     debug_nans: bool = False,
                      callback: Optional[Callable] = None):
-    """PPO training to `config.max_episodes` iterations on `device`
-    (`config.device_type` unless given: the card by default; the env
-    must be on it).  Returns (train_state, metrics).
+    """PPO training to `config.max_episodes` iterations on
+    `config.device_type` (the card by default; the env must be on it).
+    Returns (train_state, metrics).
 
     Each iteration's row holds the PPO metrics, env-steps/s and the ms
     of its rollout, GAE and update; `callback(episode, row)`, when
@@ -129,9 +132,8 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
         raise NotImplementedError(
             "pixel PPO (model_type 'cnn') comes with the renderer and the "
             "pixel envs, a later slice of the port")
-    device = device if device is not None else config.device_type
     init_fn, train_iter_fn, act_fn = PPO.make_ppo(
-        env, num_envs, cfg, device=device, debug_nans=debug_nans)
+        env, num_envs, cfg, device=config.device_type, debug_nans=debug_nans)
 
     def eval_policy(module, obs, generator):
         return torch.clamp(module(obs)[0], -1.0, 1.0)
@@ -187,16 +189,105 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
     return train_state, metrics
 
 
-def train_npg_policy(config, env, out_dir=None, demos=None):
-    raise NotImplementedError(
-        "the NPG/DAPG trainer comes with the NPG/DAPG learners, a later "
-        "slice of the port")
+def _train_generic(config, env: AdroitEnv, out_dir: str, make_algo,
+                   eval_apply, name: str, steps_per_iter: int,
+                   callback: Optional[Callable] = None):
+    """The NPG / SAC host loop (`_train_generic` :198-241): one learner
+    iteration per episode, eval every `test_interval`, a checkpoint every
+    `checkpoint_interval`, no resume.  Each iteration's row holds the
+    learner's metrics, env-steps/s and the ms of its parts.
+    `eval_apply(state, obs, generator)` gives the eval actions of a
+    learner state."""
+    num_envs = config.num_envs
+    init_fn, train_iter_fn, _ = make_algo()
+    state = init_fn(config.seed)
+    env_state = env.reset(num_envs, state.reset_generator)
+    evaluate = make_evaluate(env, eval_apply, env.MAX_EPISODE_STEPS)
+
+    metrics = Metrics(tb_dir=out_dir)
+    prof = ProfilerHook()
+    for episode in range(1, config.max_episodes + 1):
+        prof.before(episode)
+        timings: Dict[str, float] = {}
+        t0 = time.perf_counter()
+        state, env_state, m = train_iter_fn(state, env_state,
+                                            timings=timings)
+        dt = time.perf_counter() - t0      # the update's end synchronized
+        prof.after(episode)
+        row = dict(episode=episode,
+                   steps_per_s=steps_per_iter * num_envs / dt, **timings,
+                   **{k: float(v) for k, v in m.items()})
+        metrics.append(**row)
+        if callback is not None:
+            callback(episode, row)
+        if PROF and (episode % 10 == 0 or episode == 1):
+            print(f"{name} ep {episode:5d} reward "
+                  f"{row['mean_reward']:8.3f} ({dt:.2f}s/it)", flush=True)
+        if episode % config.test_interval == 0:
+            res = evaluate(state, config.seed + 2, count=10)
+            metrics.append(episode=episode,
+                           eval_reward=res.total_rewards.mean(),
+                           eval_success=res.success_rate)
+            print(f"  eval: reward {res.total_rewards.mean():8.1f} "
+                  f"success {res.success_rate:5.1f}%", flush=True)
+        if episode % config.checkpoint_interval == 0:
+            CKPT.save(CKPT.checkpoint_path(out_dir, episode), state)
+
+    metrics.save_csv(os.path.join(out_dir, "metrics.csv"))
+    metrics.close()
+    return state, metrics
 
 
-def train_sac_policy(config, env, out_dir=None):
-    raise NotImplementedError(
-        "the SAC trainer comes with the SAC learner and its replay "
-        "buffer, a later slice of the port")
+def npg_config(config) -> NPG.NPGConfig:
+    """The learner's NPGConfig from a `utils.config` Config: a field the
+    Config lacks (a plain Config has no n_steps or gamma) takes the JAX
+    trainer's default."""
+    return NPG.NPGConfig(
+        n_steps=getattr(config, "n_steps", 64),
+        normalized_step_size=getattr(config, "normalized_step_size", 0.1),
+        gamma=getattr(config, "gamma", 0.995),
+        gae_lambda=getattr(config, "gae_lambda", 0.97))
+
+
+def sac_config(config) -> SAC.SACConfig:
+    """The learner's SACConfig from a `utils.config` Config.  As in the
+    JAX trainer, `batch_size` is the Config's (50 unless set; 256 only
+    where it is 0 or missing)."""
+    return SAC.SACConfig(lr=config.learning_rate,
+                         batch_size=getattr(config, "batch_size", 256) or 256)
+
+
+def train_npg_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
+                     demos=None, callback: Optional[Callable] = None):
+    """NPG / DAPG training (`algos/npg.py`; DAPG when `demos` =
+    {"obs", "actions"} is given) on `config.device_type`.  Eval actions
+    are the policy mean, clipped."""
+    out_dir = out_dir or (config.log_path or "results")
+    cfg = npg_config(config)
+    make = lambda: NPG.make_npg(env, config.num_envs, cfg, demos=demos,
+                                device=config.device_type)
+
+    def eval_apply(state, obs, generator):
+        return torch.clamp(state.module(obs)[0], -1.0, 1.0)
+
+    return _train_generic(config, env, out_dir, make, eval_apply, "npg",
+                          cfg.n_steps, callback)
+
+
+def train_sac_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
+                     callback: Optional[Callable] = None):
+    """SAC training (`algos/sac.py`) on `config.device_type`.  Eval
+    actions are tanh of the actor's mean."""
+    out_dir = out_dir or (config.log_path or "results")
+    cfg = sac_config(config)
+    make = lambda: SAC.make_sac(env, config.num_envs, cfg,
+                                device=config.device_type)
+
+    def eval_apply(state, obs, generator):
+        return torch.tanh(SAC._actor_dist(state.actor, obs, env.nu, cfg)[0])
+
+    return _train_generic(config, env, out_dir, make, eval_apply, "sac",
+                          cfg.steps_per_iter, callback)
 
 
 def train_planet_policy(config, env, out_dir=None):

@@ -60,7 +60,10 @@ def test_import_works_without_gpu_or_nvcc():
     code = (
         "import sys, torch\n"
         "import mj_envs_torch, mj_envs_torch.envs, "
-        "mj_envs_torch.parallel.vector, mj_envs_torch.physics.pipeline\n"
+        "mj_envs_torch.parallel.vector, mj_envs_torch.physics.pipeline, "
+        "mj_envs_torch.algos.npg, mj_envs_torch.algos.sac, "
+        "mj_envs_torch.algos.dapg, mj_envs_torch.utils.train, "
+        "mj_envs_torch.run\n"
         "assert not torch.cuda.is_available()\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
