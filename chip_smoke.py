@@ -65,8 +65,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
    weights and draws, stage by stage: NPG's advantages, g and a Fisher
    product on one shared trajectory, SAC's first-update losses and
    gradients on one shared ring, then each one's params;
-8. the launches of phases 5-7 together, one JSON line listing the
-   kernels, then the device line.
+8. the pixel path: 8a the renderer, 256 hammer envs after a reset and
+   two random steps rendered 128x128 on the card and on the CPU from
+   one state (at most 0.5 % of the pixels more than 1.0 apart), the ms
+   of one 256-env chunk and a `torch.profiler` trace of one, the JAX
+   package's golden image, and all four tasks at 8 envs; 8b `configs/hammer_ppo.json` with model_type "cnn"
+   through `train_ppo_policy` (1024 envs, NatureCNN, chunk 512,
+   pixel_chunk 256; n_steps 8, 2 iterations, a checkpoint at the second,
+   one evaluation of 10 x 5 steps): each iteration's env-steps/s and its
+   rollout (physics, render, policy) / GAE / update ms, iteration 2's
+   launches, the checkpoint restored bit for bit; 8c
+   `configs/hammer_planet.json` at its full widths through
+   `train_planet_policy` (30-step rollouts, 2 seed episodes, one
+   training episode of 4 updates at batch 50 x chunk 50 and a 30-step
+   collect of single-env steps planned by CEM 1000 / 100 / 10 / 12):
+   update ms, plan ms a step, collect env-steps/s, the episode's
+   launches (B = 1), the checkpoint restored bit for bit, an evaluation
+   of the loaded params on 2 envs x 3 steps.  Then card vs CPU: one
+   pixel-PPO rollout of 8 envs x 2 steps on the same draws and its
+   update on one shared trajectory (float32, float64), one PlaNet update
+   on a synthetic batch (float32: losses, gradients; float64: params),
+   the float64 planner's top-k sets, and one hammer step at B = 1;
+   then the `[8] launches` line, phases 5-8 together, one JSON line
+   listing the kernels, and the device line.
 
 Phase 3 also prints SHA-256 digests of the outputs of the factor
 kernel, the noslip kernel, the alpha-only linesearch and the
@@ -1097,8 +1118,10 @@ def learner_config(name, cuts):
 def learner_run(TK, train, config, env, out, line, **kw):
     """`train(config, env, out)` with a callback that prints `line(row)`
     and snapshots the launch counts after each iteration: (state, rows,
-    launches of the last iteration, seconds)."""
-    snaps, rows = [], []
+    launches of the last iteration, seconds).  A first iteration's
+    launches count from the call (PlaNet's include its replay seeding)."""
+    torch.cuda.synchronize()
+    snaps, rows = [dict(TK.launches)], []
 
     def on_iteration(episode, row):
         torch.cuda.synchronize()
@@ -1110,8 +1133,7 @@ def learner_run(TK, train, config, env, out, line, **kw):
     t0 = time.perf_counter()
     st, _ = train(config, env, out, callback=on_iteration, **kw)
     secs = time.perf_counter() - t0
-    last = {k: snaps[-1][k] - (snaps[-2][k] if len(snaps) > 1 else 0)
-            for k in TK.KERNELS}
+    last = {k: snaps[-1][k] - snaps[-2][k] for k in TK.KERNELS}
     for r in rows:
         bad = [k for k, v in r.items() if not np.isfinite(v)]
         check(not bad, f"non-finite metrics {bad}")
@@ -1528,6 +1550,541 @@ def learners_phase(TK, envs, dev, info):
     return launches
 
 
+# Phase 8: the pixel path.
+RENDER_ENVS = 256          # envs per render chunk of the pixel PPO
+PIXEL_SHARE = 0.005        # share of pixels that may differ by more than 1
+# The board height of the JAX package's hammer reset of PRNGKey(0), the
+# state of its golden image (`tests/test_torch_render.py` derives it from
+# the JAX package's `_reset_var`).
+GOLDEN_BOARD_Z = 0.18682485818862915
+GOLDEN = os.path.join("tests", "golden", "raster_hammer64.npy")
+PIXEL_PPO_CUTS = dict(n_steps=8, max_episodes=2, checkpoint_interval=2)
+PLANET_CONFIG = os.path.join("configs", "hammer_planet.json")
+# Length only: 30-step rollouts, 2 seed episodes, 4 updates per episode,
+# one training episode (a checkpoint after it).
+PLANET_CUTS = dict(max_episode_length=60, seed_episodes=2, sample_iters=4,
+                   max_episodes=3, checkpoint_interval=3)
+# Card vs CPU.  The pixel-PPO iteration's bounds are the port-vs-JAX floors
+# of `tests/test_torch_pixel_ppo.py` (4x the worst over seeds 0-2): both
+# sides render their own frames, and a ray that grazes an edge may land on
+# the other side of it.  PlaNet's update: a synthetic batch of 8 sequences
+# of 10 at the config's widths.
+PIXEL_PAIR_BOUNDS = dict(action=1.5e-4, log_prob=4.6e-5, value=6.0e-3,
+                         reward=5.7e-6)
+PLANET_PAIR_BATCH, PLANET_PAIR_CHUNK = 8, 10
+# The updates on one shared batch or trajectory, card vs CPU: 4x the worst
+# over seeds 0-2 and this phase's own pair, on two calls (`python
+# tests/measure_torch_learner_floors.py card_pixel_pairs`): pixel PPO's
+# params 7.1e-5 (float32), 7.1e-15 (float64); PlaNet's losses 1.2e-7
+# and 3.3e-16 relative, gradients 4.8e-5 and 7.9e-16 of the largest,
+# float64 params 5.5e-15.  The params' bounds are under a quarter of how
+# far the update moves them (1.2e-3, 1e-3): a skipped step or a flipped
+# gradient is off by about that much.  In float32 Adam's first step turns
+# a gradient's last bits into up to a quarter of lr on PlaNet's weights
+# whose gradient is near its eps (2.5e-4 of a 1e-3 step at seed 0):
+# there the gradients and the weights lr apart carry the check, and
+# float64 the params.
+PIXEL_UPDATE_BOUNDS = dict(f32=2.9e-4, f64=2.9e-14)
+PLANET_UPDATE_BOUNDS = {
+    torch.float32: dict(loss_rel=4.8e-7, grad_rel=2.0e-4, params=None),
+    torch.float64: dict(loss_rel=1.4e-15, grad_rel=3.2e-15, params=2.2e-14)}
+
+
+def pixel_share(a, b):
+    """The share of pixels whose channels differ by more than 1.0."""
+    return ((a.cpu() - b.cpu()).abs().amax(-1) > 1.0).double().mean().item()
+
+
+def render_trace(fn):
+    """One call of `fn` under `torch.profiler`: its wall time, the device
+    kernels it ran, their summed device time, the device's idle share and
+    the kernels that took the most device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.device_time_total / 1e3
+    device_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not n:
+        log("  render traced: no device time in the trace (not measured)")
+        return
+    log(f"  render traced: wall {wall_ms:.1f} ms, {n} device kernels, "
+        f"device {device_ms:.1f} ms, idle share "
+        f"{1.0 - device_ms / wall_ms:.3f}; most device time: "
+        + "; ".join(f"{k[:60]} {v:.2f} ms" for k, v in top))
+
+
+def render_phase(envs, dev, info, random_actions):
+    """8a: the renderer on the card against the CPU on one state of 256
+    hammer envs; the golden image; all four tasks at 8 envs."""
+    from mj_envs_torch.envs.base import _apply_var
+    from mj_envs_torch.envs.pixels import PixelObservationEnv
+    from mj_envs_torch.render import raster
+
+    env = envs.make("hammer-v0", device=dev)
+    penv = PixelObservationEnv(env)
+    gen = env.generator(3)
+    st = env.reset(RENDER_ENVS, gen)
+    for _ in range(2):
+        st = env.step_auto_reset(
+            st, random_actions(gen, RENDER_ENVS, env.nu, dev), gen)
+    model = _apply_var(env.model, st.var)
+    args = (st.data.geom_xpos, st.data.geom_xmat, penv.camera)
+    img = raster.render(model, *args, dirs=penv.dirs)
+    env_c = envs.make("hammer-v0", device="cpu")
+    st_c = st.map(lambda x: x.cpu())
+    t0 = time.perf_counter()
+    img_c = raster.render(_apply_var(env_c.model, st_c.var),
+                          st_c.data.geom_xpos, st_c.data.geom_xmat,
+                          penv.camera.to("cpu"))
+    cpu_s = time.perf_counter() - t0
+    share = pixel_share(img, img_c)
+    ms128 = time_ms(lambda: raster.render(model, *args, dirs=penv.dirs),
+                    reps=5)
+    ms64 = time_ms(lambda: penv._render(st), reps=5)
+    log(f"  hammer {RENDER_ENVS} envs after a reset and 2 steps, 128x128: "
+        f"card vs CPU, pixels more than 1.0 apart: {share:.6f} (bound "
+        f"{PIXEL_SHARE}); max |diff| {(img.cpu() - img_c).abs().max():.3f}"
+        f"; the CPU took {cpu_s:.1f} s")
+    log(f"  render of one {RENDER_ENVS}-env chunk: 128x128 {ms128:.2f} ms, "
+        f"with the 64x64 resize (PixelObservationEnv._render) {ms64:.2f} "
+        f"ms ({info})")
+    render_trace(lambda: raster.render(model, *args, dirs=penv.dirs))
+    check(share <= PIXEL_SHARE, f"renderer card vs CPU: {share}")
+    check(bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+          and float(img.max()) <= 255.0 and float(img.std()) > 5.0,
+          "renderer output")
+
+    # The golden image: qpos0, zero qvel, the JAX reset's board height;
+    # the poses from the CPU's kinematics, as the JAX package's are.  (The
+    # card's FK kernel rounds in another order; through the JAX package's
+    # grazing test, whose b^2 - c assumes a unit direction, that can move
+    # a silhouette pixel: the card-vs-CPU check above holds that share.)
+    g = env_c.reset(1, env_c.generator(0))
+    var = g.var
+    var.body_pos[:, env_c.board_bid, 2] = GOLDEN_BOARD_Z
+    g = env_c.set_physics_state(g.replace(var=var), env_c.model.qpos0[None],
+                                torch.zeros(1, env_c.nv))
+    golden = torch.as_tensor(np.load(os.path.join(ROOT, GOLDEN)))
+    gk = penv._render(g.map(lambda x: x.to(dev)))[0].cpu()
+    gd = (gk - golden).abs().max().item()
+    own = env.set_physics_state(g.map(lambda x: x.to(dev)),
+                                env.model.qpos0[None],
+                                torch.zeros(1, env.nv, device=dev))
+    gd_own = (penv._render(own)[0].cpu() - golden).abs()
+    log(f"  golden image {GOLDEN} on the card: max |diff| {gd:.4f} "
+        f"(bound 2.0); from the card's own kinematics: max |diff| "
+        f"{gd_own.max().item():.4f}, {int((gd_own > 2.0).any(-1).sum())} "
+        "pixels of 4096 over 2.0")
+    check(gd < 2.0, f"golden image: {gd}")
+
+    for task in TASKS:
+        e = envs.make(task, device=dev)
+        p = PixelObservationEnv(e)
+        s = e.reset(8, e.generator(1))
+        s = e.step_auto_reset(s, random_actions(e.generator(2), 8, e.nu, dev),
+                              e.generator(4))
+        px = p._render(s)
+        e_c = envs.make(task, device="cpu")
+        p_c = PixelObservationEnv(e_c)
+        sh = pixel_share(px, p_c._render(s.map(lambda x: x.cpu())))
+        log(f"  {task}: 8 envs 64x64, card vs CPU pixels more than 1.0 "
+            f"apart {sh:.6f}, mean {float(px.mean()):.2f}, std "
+            f"{float(px.std()):.2f}")
+        check(px.shape == (8, 64, 64, 3) and bool(torch.isfinite(px).all())
+              and float(px.std()) > 5.0, f"{task} pixels")
+        check(sh <= PIXEL_SHARE, f"{task} card vs CPU: {sh}")
+    return dict(render_ms_128=ms128, render_ms_64=ms64)
+
+
+def pixel_ppo_phase(TK, envs, dev, info, tmp):
+    """8b: pixel PPO through `train_ppo_policy` at the config's widths
+    (model_type "cnn"); returns the train state and the training rows."""
+    from mj_envs_torch.algos import ppo as PPO
+    from mj_envs_torch.envs.pixels import PixelObservationEnv
+    from mj_envs_torch.utils import checkpoint as CKPT, eval as EV
+    from mj_envs_torch.utils import train as TT
+    from mj_envs_torch.utils.config import PPOConfig
+
+    config = PPOConfig().load(os.path.join(ROOT, PPO_CONFIG))
+    config.model_type = "cnn"
+    full = {k: getattr(config, k) for k in PIXEL_PPO_CUTS}
+    for k, v in PIXEL_PPO_CUTS.items():
+        setattr(config, k, v)
+    config.test_interval = config.max_episodes + 1   # eval below, once
+    cfg = TT.ppo_config(config)
+    env = envs.make(config.env_name, device=dev)
+    out = os.path.join(tmp, "pixel_ppo")
+    log(f"[8b] pixel PPO: {PPO_CONFIG} with model_type cnn, "
+        f"{config.env_name}, num_envs {config.num_envs}, NatureCNN, "
+        f"minibatches {cfg.n_minibatches}, epochs {cfg.n_epochs}, chunk "
+        f"{cfg.step_chunk}, pixel_chunk {cfg.pixel_chunk}; cuts: "
+        + ", ".join(f"{k} {full[k]} -> {v}" for k, v in
+                    PIXEL_PPO_CUTS.items()))
+
+    def line(r):
+        return (f"rollout {r['rollout_ms']:.1f} ms (physics "
+                f"{r['physics_ms']:.1f}, render {r['render_ms']:.1f}, "
+                f"policy {r['policy_ms']:.1f}), GAE {r['gae_ms']:.2f} ms, "
+                f"update {r['update_ms']:.1f} ms; mean_reward "
+                f"{r['mean_reward']:.4f}, pg_loss {r['pg_loss']:.4f} "
+                f"({info})")
+
+    st, rows, last, secs = learner_run(TK, TT.train_ppo_policy, config, env,
+                                       out, line)
+    check_launches(TK, last, "pixel PPO iteration 2")
+    penv = PixelObservationEnv(env)
+    init_fn = PPO.make_pixel_ppo(penv, config.num_envs, cfg, device=dev)[0]
+    check_restore(CKPT, out, 2, init_fn(config.seed + 99), st,
+                  "pixel PPO train state")
+
+    def policy(module, pixels, gen):
+        return torch.clamp(module(pixels)[0], -1.0, 1.0)
+
+    t0 = time.perf_counter()
+    res = EV.make_pixel_evaluate(penv, policy, EVAL_LENGTH)(
+        st.module, config.seed + 2, count=EVAL_COUNT)
+    log(f"  training {secs:.1f} s; eval {EVAL_COUNT} x {EVAL_LENGTH} steps "
+        f"in {time.perf_counter() - t0:.1f} s: reward "
+        f"{res.total_rewards.mean():.3f}")
+    check(res.obs.shape == (EVAL_COUNT, EVAL_LENGTH, env.OBS_DIM)
+          and np.isfinite(res.total_rewards).all(), "pixel eval result")
+    return config, rows
+
+
+def pixel_ppo_pair(envs, devices, config, seed=7):
+    """8b, card vs CPU: one pixel-PPO rollout of PAIR_ENVS hammer envs on
+    each of `devices` from the same state, weights and noise, each
+    rendering its own frames through one camera; then the update on one
+    shared trajectory (the last device's, with its advantages and
+    returns) on each device, in float32 and in float64, from the same
+    weights and permutations.  Returns {"traj": [trajectory per device],
+    "params": {dtype: [params after the update per device]}, "before":
+    {dtype: params before}}."""
+    from mj_envs_torch.algos import networks as NN, ppo as PPO
+    from mj_envs_torch.envs.pixels import PixelEnvState, PixelObservationEnv
+
+    cfg = PPO.PPOConfig(lr=config.learning_rate,
+                        max_grad_norm=float(config.grad_clip_norm),
+                        **PAIR_CFG)
+    pens = [PixelObservationEnv(envs.make(config.env_name, device=d))
+            for d in devices]
+    env_p = envs.make(config.env_name, device="cpu")
+    gen = torch.Generator().manual_seed(seed)
+    st_p = env_p.reset(PAIR_ENVS, env_p.generator(seed))
+    tree = NN.cnn_actor_critic_to_numpy(
+        NN.CnnActorCritic(env_p.nu, generator=gen, device="cpu"))
+    n = cfg.n_steps * PAIR_ENVS
+    noise = torch.randn(cfg.n_steps, PAIR_ENVS, env_p.nu, generator=gen)
+    perms = torch.stack([torch.randperm(n, generator=gen)
+                         for _ in range(cfg.n_epochs)])
+    out = dict(traj=[], params={}, before={})
+    for penv in pens:
+        d = penv.env.device
+        mod = NN.cnn_actor_critic_from_numpy(tree, device=d)
+        ts = PPO.TrainState(mod, PPO.make_optimizer(mod, cfg),
+                            torch.Generator(device=d), penv.env.generator(8))
+        st = st_p.map(lambda x: x.to(d))
+        ps = PixelEnvState(state=st, pixels=penv._render(st))
+        ps2, traj = PPO.make_pixel_rollout(penv, cfg)(ts, ps, noise.to(d))
+        with torch.no_grad():
+            last = mod(ps2.pixels)[2]
+        out["traj"].append((traj, PPO._gae(cfg, traj, last)))
+    traj, (adv, ret) = out["traj"][-1]
+    out["traj"] = [t for t, _ in out["traj"]]
+    for dtype in (torch.float32, torch.float64):
+        out["params"][dtype] = []
+        for penv in pens:
+            d = penv.env.device
+            mod = NN.cnn_actor_critic_from_numpy(tree, device=d, dtype=dtype)
+            ts = PPO.TrainState(mod, PPO.make_optimizer(mod, cfg),
+                                torch.Generator(device=d),
+                                torch.Generator(device=d))
+            cast = lambda x: x.to(d, None if x.dtype == torch.uint8  # noqa
+                                  else dtype)
+            PPO._make_update(cfg)(ts, PPO.Transition(*map(cast, traj)),
+                                  cast(adv), cast(ret), perms.to(d))
+            out["params"][dtype].append(
+                [p.detach().cpu() for p in mod.parameters()])
+        out["before"][dtype] = [
+            p.detach() for p in NN.cnn_actor_critic_from_numpy(
+                tree, device="cpu", dtype=dtype).parameters()]
+    return out
+
+
+def _max_diff(a, b):
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def pixel_pair_diffs(out, i=0, j=-1):
+    """Devices i and j of `pixel_ppo_pair`: the share of stored frame
+    values more than 1 apart, the rollout fields' max abs differences,
+    the params' after each update and how far j's updates moved them."""
+    tk, tp = out["traj"][i], out["traj"][j]
+    frames = (tk.obs.cpu().int() - tp.obs.int()).abs()
+    d = dict(share=(frames > 1).double().mean().item(),
+             done=float(not torch.equal(tk.done.cpu(), tp.done)))
+    for f in PIXEL_PAIR_BOUNDS:
+        d[f] = (getattr(tk, f).cpu().double()
+                - getattr(tp, f).double()).abs().max().item()
+    for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+        ps = out["params"][dtype]
+        d[f"params_{name}"] = _max_diff(ps[i], ps[j])
+        d[f"moved_{name}"] = _max_diff(ps[j], out["before"][dtype])
+    return d
+
+
+def pixel_pair_phase(envs, dev, config):
+    d = pixel_pair_diffs(pixel_ppo_pair(envs, [dev, "cpu"], config))
+    cfg = PAIR_CFG
+    log(f"  card vs CPU, {PAIR_ENVS} envs x {cfg['n_steps']} steps, same "
+        f"draws: stored frames more than 1 apart {d['share']:.6f} (bound "
+        f"{PIXEL_SHARE}); " + ", ".join(
+            f"{k} {d[k]:.3e} (bound {b:.1e})"
+            for k, b in PIXEL_PAIR_BOUNDS.items())
+        + f"; the update ({cfg['n_epochs']} x {cfg['n_minibatches']} "
+        "minibatches) on one shared trajectory: params "
+        + ", ".join(f"{k} {d['params_' + k]:.3e} apart (bound "
+                    f"{PIXEL_UPDATE_BOUNDS[k]:.1e}) after moving "
+                    f"{d['moved_' + k]:.3e}" for k in PIXEL_UPDATE_BOUNDS))
+    check(d["done"] == 0.0, "pixel pair: done differs")
+    check(d["share"] <= PIXEL_SHARE, f"pixel pair frames: {d['share']}")
+    for k, b in PIXEL_PAIR_BOUNDS.items():
+        check(d[k] <= b, f"pixel pair {k}: {d[k]}")
+    for k, b in PIXEL_UPDATE_BOUNDS.items():
+        check(d[f"moved_{k}"] > 4 * b,
+              f"pixel pair update ({k}) moved the params by "
+              f"{d['moved_' + k]} only")
+        check(d[f"params_{k}"] <= b,
+              f"pixel pair update params ({k}): {d['params_' + k]}")
+
+
+def planet_phase(TK, envs, dev, info, tmp):
+    """8c: `train_planet_policy` at the config's full widths, cut in length
+    only; the checkpoint restored, an evaluation of the loaded params."""
+    from mj_envs_torch.algos import planet as PL
+    from mj_envs_torch.utils import checkpoint as CKPT, eval as EV
+    from mj_envs_torch.utils import train as TT
+    from mj_envs_torch.utils.config import PlanetConfig
+
+    config = PlanetConfig().load(os.path.join(ROOT, PLANET_CONFIG))
+    full = {k: getattr(config, k) for k in PLANET_CUTS}
+    for k, v in PLANET_CUTS.items():
+        setattr(config, k, v)
+    env = envs.make(config.env_name, device=dev)
+    out = os.path.join(tmp, "planet")
+    log(f"[8c] PlaNet: {PLANET_CONFIG} {config.env_name}, belief "
+        f"{config.belief_size}, state {config.state_size}, hidden "
+        f"{config.hidden_size}, embedding {config.embedding_size}, batch "
+        f"{config.batch_size} x chunk {config.chunk_size}, CEM "
+        f"{config.candidates} / {config.top_candidates} / "
+        f"{config.optimisation_iters} iterations / horizon "
+        f"{config.planning_horizon}, replay {config.experience_size} frames"
+        " (host); cuts: " + ", ".join(f"{k} {full[k]} -> {v}"
+                                      for k, v in PLANET_CUTS.items()))
+
+    def line(r):
+        return (f"update {r['update_ms']:.1f} ms each (sampling "
+                f"{r['sample_ms']:.1f} ms on the host), plan "
+                f"{r['plan_ms']:.1f} ms a step, collect "
+                f"{r['collect_steps_per_s']:.1f} env-steps/s "
+                f"({r['collect_ms']:.0f} ms); obs_loss {r['obs_loss']:.1f}, "
+                f"kl {r['kl_loss']:.3f}, reward {r['reward']:.3f} ({info})")
+
+    st, rows, last, secs = learner_run(TK, TT.train_planet_policy, config,
+                                       env, out, line)
+    check_launches(TK, last, "PlaNet's run (the replay's seed episodes and "
+                   "one training episode, every step a single env, B = 1)")
+    cfg = PL.cfg_from_config(config, env.nu)
+    fresh = PL.make_planet(cfg, device=dev)[0](config.seed + 99)
+    check_restore(CKPT, out, config.max_episodes, fresh, st,
+                  "PlaNet params and Adam state")
+    config.models_path = CKPT.latest(out)
+    module = EV.load_planet_params(config, env)
+    t0 = time.perf_counter()
+    res = EV.make_planet_evaluate(env, config, 3)(module, config.seed + 2,
+                                                  count=2)
+    log(f"  training {secs:.1f} s (replay seeding included); eval 2 x 3 "
+        f"steps of the loaded params in {time.perf_counter() - t0:.1f} s: "
+        f"reward {res.total_rewards.mean():.3f}")
+    check(res.obs.shape == (2, 3, env.OBS_DIM)
+          and np.isfinite(res.total_rewards).all(), "PlaNet eval result")
+    return config, st, rows
+
+
+def planet_update_pair(devices, cfg, tree, seed=11):
+    """8c, card vs CPU: one `update_fn` on each of `devices`, in float32
+    and in float64, on the same synthetic batch of PLANET_PAIR_BATCH
+    sequences of PLANET_PAIR_CHUNK, weights `tree` and posterior noise.
+    Returns {dtype: {"metrics", "grads", "params": one per device,
+    "before": the params before}}."""
+    from mj_envs_torch.algos import planet as PL
+
+    rng = np.random.default_rng(seed)
+    T, Bt = PLANET_PAIR_CHUNK, PLANET_PAIR_BATCH
+    batch = dict(
+        obs=rng.uniform(-0.5, 0.5, (T, Bt, 64, 64, 3)).astype(np.float32),
+        actions=rng.uniform(-1, 1, (T, Bt, cfg.action_size))
+        .astype(np.float32),
+        rewards=rng.standard_normal((T, Bt)).astype(np.float32),
+        nonterminals=np.ones((T, Bt), np.float32))
+    noise = torch.randn(T - 1, Bt, cfg.state_size,
+                        generator=torch.Generator().manual_seed(seed + 1))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        o = out[dtype] = dict(metrics=[], grads=[], params=[])
+        for d in devices:
+            mod = PL.planet_from_numpy(tree, cfg, device=d, dtype=dtype)
+            stt = PL.PlanetState(mod, PL.make_optimizer(mod, cfg))
+            m = PL.make_planet(cfg, device=d, dtype=dtype)[1](
+                stt, batch, noise=noise.to(d, dtype))
+            o["metrics"].append({k: float(v) for k, v in m.items()})
+            # the gradients the step took (after the clip at its norm)
+            o["grads"].append([p.grad.detach().cpu()
+                               for p in mod.parameters()])
+            o["params"].append([p.detach().cpu() for p in mod.parameters()])
+        o["before"] = [p.detach() for p in PL.planet_from_numpy(
+            tree, cfg, device="cpu", dtype=dtype).parameters()]
+    return out
+
+
+def planet_update_diffs(out, lr, i=0, j=-1):
+    """Devices i and j of one dtype of `planet_update_pair`: the losses'
+    largest relative difference, the gradients' largest difference
+    relative to the largest gradient, the params' largest difference,
+    how far j's step moved them, and the weights more than lr apart."""
+    mk, mc = out["metrics"][i], out["metrics"][j]
+    g_max = max(g.abs().max().item() for g in out["grads"][j])
+    pk, pc = out["params"][i], out["params"][j]
+    return dict(
+        loss_rel=max(abs(mk[k] - mc[k]) / max(abs(mc[k]), 1e-30)
+                     for k in mk),
+        grad_rel=_max_diff(out["grads"][i], out["grads"][j]) / g_max,
+        params=_max_diff(pk, pc),
+        moved=_max_diff(pc, out["before"]),
+        flips=float(sum(int(((a - b).abs() > lr).sum())
+                        for a, b in zip(pk, pc))))
+
+
+def planet_pairs(TK, envs, dev, config, state):
+    """8c, card vs CPU: one `update_fn` on the same synthetic batch,
+    weights and posterior noise; `plan` in float64 on the same normals
+    (every iteration's top-k sets equal); one hammer step at B = 1."""
+    from mj_envs_torch.algos import planet as PL
+
+    cfg = state.params.cfg
+    tree = PL.planet_to_numpy(state.params)
+    out = planet_update_pair([dev, "cpu"], cfg, tree)
+    n = sum(p.numel() for p in out[torch.float32]["params"][0])
+    log(f"  card vs CPU, one update on {PLANET_PAIR_BATCH} sequences of "
+        f"{PLANET_PAIR_CHUNK} at full width ({n} weights, lr {cfg.lr}): "
+        "losses " + json.dumps({k: round(v, 4) for k, v in
+                                out[torch.float32]["metrics"][0].items()}))
+    for dtype, b in PLANET_UPDATE_BOUNDS.items():
+        d = planet_update_diffs(out[dtype], cfg.lr)
+        log(f"  {dtype}: losses {d['loss_rel']:.2e} apart relative (bound "
+            f"{b['loss_rel']:.1e}), gradients {d['grad_rel']:.2e} relative "
+            f"to the largest (bound {b['grad_rel']:.1e}), params "
+            f"{d['params']:.3e} apart after a step that moved them by "
+            f"{d['moved']:.3e}"
+            + (f" (bound {b['params']:.1e})" if b["params"] else "")
+            + f", {int(d['flips'])} weights more than lr apart")
+        for k in ("loss_rel", "grad_rel"):
+            check(d[k] <= b[k], f"PlaNet update ({dtype}) {k}: {d[k]}")
+        check(d["flips"] == 0, f"PlaNet update ({dtype}): {d['flips']} "
+              "weights more than lr apart")
+        if b["params"]:
+            check(d["moved"] > 4 * b["params"],
+                  f"PlaNet update ({dtype}) moved the params by "
+                  f"{d['moved']} only")
+            check(d["params"] <= b["params"],
+                  f"PlaNet update ({dtype}) params: {d['params']}")
+
+    # The planner in float64, both sides on the same normals.
+    gen = torch.Generator().manual_seed(13)
+    h = torch.randn(2, cfg.belief_size, generator=gen, dtype=torch.float64)
+    s = torch.randn(2, cfg.state_size, generator=gen, dtype=torch.float64)
+    eps = torch.randn(cfg.optimisation_iters, cfg.candidates,
+                      cfg.planning_horizon, 2, cfg.action_size,
+                      generator=gen, dtype=torch.float64)
+    tops, acts = [], []
+    for d in (dev, torch.device("cpu")):
+        mod = PL.planet_from_numpy(tree, cfg, device=d, dtype=torch.float64)
+        mean = torch.zeros(cfg.planning_horizon, 2, cfg.action_size,
+                           dtype=torch.float64, device=d)
+        std = torch.ones_like(mean)
+        tops.append([])
+        for it in range(cfg.optimisation_iters):
+            mean, std, top = PL.cem_step(mod, h.to(d), s.to(d), mean, std,
+                                         eps[it].to(d))
+            tops[-1].append(top.sort(dim=1).values.cpu())
+        acts.append(mean[0].cpu())
+    same = [torch.equal(a, b) for a, b in zip(*tops)]
+    a_err = (acts[0] - acts[1]).abs().max().item()
+    log(f"  plan float64 card vs CPU ({cfg.candidates} candidates, top "
+        f"{cfg.top_candidates}, {cfg.optimisation_iters} iterations, 2 envs)"
+        f": top-k sets equal in every iteration: {all(same)}; action "
+        f"{a_err:.3e} apart (bound 1e-9)")
+    check(all(same), "plan: top-k sets differ")
+    check(a_err <= 1e-9, f"plan action: {a_err}")
+
+    # One hammer step at B = 1, the card's kernels against the CPU.
+    env_c = envs.make("hammer-v0", device="cpu")
+    env_k = envs.make("hammer-v0", device=dev)
+    st_c = env_c.reset(1, env_c.generator(21))
+    a = torch.rand(1, env_c.nu, generator=torch.Generator().manual_seed(22))
+    a = 2.0 * a - 1.0
+    TK.reset_launches()
+    st_k = env_k.step(st_c.map(lambda x: x.to(dev)), a.to(dev))
+    torch.cuda.synchronize()
+    one = dict(TK.launches)
+    st_c = env_c.step(st_c, a)
+    diffs = {}
+    for name, x, y in (("qpos", st_k.data.qpos, st_c.data.qpos),
+                       ("qvel", st_k.data.qvel, st_c.data.qvel),
+                       ("obs", st_k.obs, st_c.obs)):
+        diffs[name] = (x.cpu() - y).abs().max().item()
+        torch.testing.assert_close(x.cpu(), y, **PAIR_TOL,
+                                   msg=lambda m: f"B = 1 step {name}: {m}")
+    log(f"  hammer step at B = 1, card vs CPU: max abs diff "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in diffs.items()})} "
+        f"(rtol 1e-3, atol 2e-3); launches {json.dumps(one)}")
+    for name in MAIN_KERNELS:
+        check(one[name] > 0, f"kernel {name} was not launched at B = 1")
+
+
+def pixel_phase(TK, envs, dev, info):
+    """Phase 8: the renderer, pixel PPO and PlaNet on the card.  Returns
+    the launches of 8a-8c's runs (the env steps, training and
+    evaluations; not the card-vs-CPU pairs)."""
+    import tempfile
+    from mj_envs_torch.parallel.vector import random_actions
+
+    log("[8a] renderer:")
+    TK.reset_launches()
+    render_phase(envs, dev, info, random_actions)
+    with tempfile.TemporaryDirectory() as tmp:
+        ppo_config, _ = pixel_ppo_phase(TK, envs, dev, info, tmp)
+        planet_config, pstate, _ = planet_phase(TK, envs, dev, info, tmp)
+        torch.cuda.synchronize()
+        launches = dict(TK.launches)
+        log(f"  launches of phase 8a-8c: {json.dumps(launches)}")
+        pixel_pair_phase(envs, dev, ppo_config)
+        planet_pairs(TK, envs, dev, planet_config, pstate)
+    return launches
+
+
 def write_mjrl_pickle(path, seed, sizes=(46, 32, 32, 26)):
     """A synthetic pickle shaped as the reference's DAPG policies: an mjrl
     `gaussian_mlp.MLP` holding an `fc_network.FCNetwork` (a tanh MLP of
@@ -1639,11 +2196,12 @@ def main():
             total[name] += n
     log(json.dumps({"env_steps_per_s": rates, "gpu": info}))
 
-    for phase in (trainer_phase, learners_phase):
+    for phase in (trainer_phase, learners_phase, pixel_phase):
         for name, n in phase(TK, envs, dev, info).items():
             total[name] += n
-    log(f"[8] launches: main path (phase 5), PPO trainer (phase 6) and "
-        f"learners (phase 7) together: {json.dumps(total)}")
+    log(f"[8] launches: main path (phase 5), PPO trainer (phase 6), "
+        f"learners (phase 7) and the pixel path (phase 8a-8c) together: "
+        f"{json.dumps(total)}")
     for e in entries:
         e["launches"] = total[e["name"]]
 

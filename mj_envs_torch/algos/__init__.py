@@ -1,3 +1,3 @@
 """Learners of the PyTorch port (`mj_envs_tpu/algos/`): the state-vector
-actor-critic and PPO, NPG/DAPG with the DAPG policy loader, and SAC.
-The pixel PPO and PlaNet come in later slices of the port."""
+and CNN actor-critics and PPO on states or pixels, NPG/DAPG with the
+DAPG policy loader, SAC, and PlaNet with its sequence replay."""

@@ -1,5 +1,5 @@
 """Policy / value networks of the PyTorch port
-(`mj_envs_tpu/algos/networks.py:1-72`, the state-vector half).
+(`mj_envs_tpu/algos/networks.py`).
 
 The JAX package keeps its MLPs as pytrees of {"w": (in, out), "b":
 (out,)} layers; here an MLP is an `nn.ModuleList` of `nn.Linear` layers,
@@ -7,8 +7,8 @@ whose weight is (out, in), applied with a chosen activation (tanh for
 the actor-critic and NPG, relu for SAC).  `mlp_from_numpy` /
 `mlp_to_numpy` and `actor_critic_from_numpy` / `actor_critic_to_numpy`
 carry a JAX layer list or parameter tree across and back, transposing
-each weight.  The CNN torso of the pixel policy comes with the
-renderer's slice.
+each weight; `cnn_actor_critic_from_numpy` / `_to_numpy` do the same for
+the pixel policy's CNN, whose conv weights cross from HWIO to OIHW.
 """
 from __future__ import annotations
 
@@ -166,4 +166,122 @@ def actor_critic_from_numpy(params: Dict, device="cuda",
     _copy_layers(module.critic, critic)
     with torch.no_grad():
         module.log_std.copy_(torch.as_tensor(np.array(params["log_std"])))
+    return module
+
+
+# -- the CNN actor-critic for pixel observations ----------------------------
+# The reference's `ActorCriticCnnPolicy` path (`mj_envs_vision/algos/
+# baselines.py:120-134`: SB3 takes the CNN policy when `config.model_type
+# == "cnn"`): SB3's NatureCNN torso (conv 32x8x8/4, 64x4x4/2, 64x3x3/1,
+# VALID, fc 512, ReLU) shared by the actor and critic heads.
+
+_NATURE_CONVS = ((8, 4, 32), (4, 2, 64), (3, 1, 64))  # (kernel, stride, out)
+
+
+def _init_conv(conv: nn.Conv2d, generator: torch.Generator, scale: float):
+    """`_init_conv` (:87-92): an orthogonal (kh kw cin, cout) matrix, cut
+    and scaled as `_init_linear`, in the JAX package's HWIO order; zero
+    bias."""
+    cout, cin, kh, kw = conv.weight.shape
+    fan_in = kh * kw * cin
+    w = _orthogonal(max(fan_in, cout), generator, conv.weight.dtype)
+    w = (w[:fan_in, :cout] * scale).reshape(kh, kw, cin, cout)
+    with torch.no_grad():
+        conv.weight.copy_(w.permute(3, 2, 0, 1))
+        conv.bias.zero_()
+
+
+class CnnActorCritic(nn.Module):
+    """NatureCNN torso and a diagonal-Gaussian actor and value critic,
+    each head one linear layer on the 512 features, with a
+    state-independent log_std (SB3's ActorCriticCnnPolicy layout).
+
+    forward takes (..., H, W, 3) pixels in [0, 255], float or uint8, in
+    the JAX package's HWC layout.  They are divided by 255 in the
+    parameter dtype.  The flattened conv output is in HWC order, as the
+    JAX package flattens its NHWC activations, so that `fc` holds the
+    JAX weights as they are."""
+
+    def __init__(self, act_dim: int, in_hw: int = 64, in_ch: int = 3,
+                 feat: int = 512, generator: Optional[torch.Generator] = None,
+                 device="cuda", dtype=torch.float32):
+        super().__init__()
+        device = torch.device(device)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        convs, c, hw = [], in_ch, in_hw
+        for ksz, stride, cout in _NATURE_CONVS:
+            conv = nn.Conv2d(c, cout, ksz, stride, device=device,
+                             dtype=dtype)
+            _init_conv(conv, generator, math.sqrt(2.0))
+            convs.append(conv)
+            hw = (hw - ksz) // stride + 1
+            c = cout
+        self.convs = nn.ModuleList(convs)
+        self.fc = nn.Linear(hw * hw * c, feat, device=device, dtype=dtype)
+        _init_linear(self.fc, generator, math.sqrt(2.0))
+        self.actor = _mlp((feat, act_dim), 0.01, generator, device, dtype)
+        self.critic = _mlp((feat, 1), 1.0, generator, device, dtype)
+        self.log_std = nn.Parameter(
+            torch.zeros(act_dim, device=device, dtype=dtype))
+
+    def features(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(..., H, W, 3) -> (..., feat)."""
+        lead = pixels.shape[:-3]
+        x = pixels.reshape((-1,) + pixels.shape[-3:])
+        x = x.to(self.fc.weight.dtype) / 255.0
+        x = x.permute(0, 3, 1, 2)                     # NHWC -> NCHW
+        for conv in self.convs:
+            x = torch.relu(conv(x))
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # HWC flatten
+        x = torch.relu(self.fc(x))
+        return x.reshape(lead + (x.shape[-1],))
+
+    def forward(self, pixels: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """-> (mean (..., act_dim), log_std (act_dim,), value (...,))."""
+        feat = self.features(pixels)
+        mean = _mlp_apply(self.actor, feat)
+        value = _mlp_apply(self.critic, feat)[..., 0]
+        return mean, self.log_std, value
+
+
+def cnn_actor_critic_to_numpy(module: CnnActorCritic) -> Dict:
+    """The JAX package's tree (`cnn_actor_critic_init`): {"torso":
+    {"convs": [{"w": HWIO, "b"}], "fc": {"w": (in, out), "b"}}, "actor",
+    "critic", "log_std"}."""
+    convs = [{"w": c.weight.detach().cpu().permute(2, 3, 1, 0).numpy().copy(),
+              "b": c.bias.detach().cpu().numpy().copy()}
+             for c in module.convs]
+    return {"torso": {"convs": convs, "fc": mlp_to_numpy([module.fc])[0]},
+            "actor": mlp_to_numpy(module.actor),
+            "critic": mlp_to_numpy(module.critic),
+            "log_std": module.log_std.detach().cpu().numpy().copy()}
+
+
+def cnn_actor_critic_from_numpy(params: Dict, device="cuda",
+                                dtype=torch.float32) -> CnnActorCritic:
+    """A CnnActorCritic holding `params`, a JAX-layout tree of arrays (as
+    `cnn_actor_critic_init` returns, or `cnn_actor_critic_to_numpy`):
+    conv weights HWIO -> OIHW, linear weights transposed."""
+    torso = params["torso"]
+    w0 = np.shape(torso["convs"][0]["w"])
+    feat = np.shape(torso["fc"]["w"])[1]
+    act_dim = np.shape(params["actor"][-1]["w"])[1]
+    hw = int(round(math.sqrt(np.shape(torso["fc"]["w"])[0]
+                             // np.shape(torso["convs"][-1]["w"])[3])))
+    in_hw = hw
+    for ksz, stride, _ in reversed(_NATURE_CONVS):
+        in_hw = (in_hw - 1) * stride + ksz
+    module = CnnActorCritic(act_dim, in_hw, w0[2], feat, device=device,
+                            dtype=dtype)
+    with torch.no_grad():
+        for conv, p in zip(module.convs, torso["convs"]):
+            conv.weight.copy_(torch.as_tensor(
+                np.array(p["w"]).transpose(3, 2, 0, 1)))
+            conv.bias.copy_(torch.as_tensor(np.array(p["b"])))
+        module.log_std.copy_(torch.as_tensor(np.array(params["log_std"])))
+    _copy_layers([module.fc], [torso["fc"]])
+    _copy_layers(module.actor, params["actor"])
+    _copy_layers(module.critic, params["critic"])
     return module

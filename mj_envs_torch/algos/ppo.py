@@ -1,5 +1,6 @@
-"""PPO of the PyTorch port (`mj_envs_tpu/algos/ppo.py:1-204`, the
-state-vector learner; the pixel PPO comes with the renderer's slice).
+"""PPO of the PyTorch port (`mj_envs_tpu/algos/ppo.py`): the
+state-vector learner (`make_ppo`) and the pixel learner on the CNN
+actor-critic (`make_pixel_ppo`).
 
 One iteration rolls `n_steps` auto-reset env steps of `num_envs` envs
 (stepped in chunks of `step_chunk`, the port's `parallel/vector.py`),
@@ -48,7 +49,7 @@ class PPOConfig(NamedTuple):
     # Envs per chunk of the batched step (the Newton loop runs until its
     # slowest env converges; chunks exit on their own).  0 disables.
     step_chunk: int = 512
-    # Envs per render chunk of the pixel PPO (a later slice); unused here.
+    # Envs per render chunk of the pixel PPO.
     pixel_chunk: int = 256
 
 
@@ -131,31 +132,40 @@ def make_ppo(env: AdroitEnv, num_envs: int, cfg: PPOConfig = PPOConfig(),
                           generator=gen,
                           reset_generator=env.generator(seed + 1))
 
-    rollout = make_rollout(env, cfg, debug_nans)
+    return init_fn, _make_train_iter(
+        cfg, dev, make_rollout(env, cfg, debug_nans), lambda es: es.obs,
+        lambda es: es), act
+
+
+def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of):
+    """train_iter_fn(train_state, state, noise=None, perms=None,
+    timings=None) -> (train_state, state, metrics): rollout, GAE from
+    the value of obs_of(last state), the update.  `timings`, when given,
+    receives the ms of the rollout, GAE and update (synchronizing the
+    card between them) and whatever parts of the rollout
+    rollout(train_state, state, noise, timings) times itself."""
     update = _make_update(cfg)
 
-    def train_iter_fn(ts: TrainState, env_state: EnvState, noise=None,
-                      perms=None, timings: Optional[Dict] = None):
-        """One iteration; `timings`, when given, receives the ms of the
-        rollout, GAE and update (synchronizing the card between them)."""
+    def train_iter_fn(ts: TrainState, state, noise=None, perms=None,
+                      timings: Optional[Dict] = None):
         clock = _Clock(dev) if timings is not None else None
-        env_state, traj = rollout(ts, env_state, noise)
+        state, traj = rollout(ts, state, noise, timings)
         if clock:
             timings["rollout_ms"] = clock.lap()
         with torch.no_grad():
-            last_value = ts.module(env_state.obs)[2]
+            last_value = ts.module(obs_of(state))[2]
         advs, rets = _gae(cfg, traj, last_value)
         if clock:
             timings["gae_ms"] = clock.lap()
         metrics = update(ts, traj, advs, rets, perms)
         metrics["mean_reward"] = traj.reward.mean()
         metrics["mean_episode_done"] = traj.done.to(traj.reward.dtype).mean()
-        metrics["nan_resets"] = env_state.nan_resets.sum()
+        metrics["nan_resets"] = env_state_of(state).nan_resets.sum()
         if clock:
             timings["update_ms"] = clock.lap()
-        return ts, env_state, metrics
+        return ts, state, metrics
 
-    return init_fn, train_iter_fn, act
+    return train_iter_fn
 
 
 def act(module, obs, generator, noise=None):
@@ -167,34 +177,126 @@ def act(module, obs, generator, noise=None):
 
 
 def make_rollout(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool = False):
-    """rollout(train_state, env_state, noise=None) -> (env_state,
-    trajectory): `cfg.n_steps` auto-reset steps (`ppo.py:86-106`).  The
-    sampled action, unclipped, and its log-prob go into the trajectory;
-    the env gets it clipped to [-1, 1]."""
+    """rollout(train_state, env_state, noise=None, timings=None) ->
+    (env_state, trajectory): `cfg.n_steps` auto-reset steps
+    (`ppo.py:86-106`).  The sampled action, unclipped, and its log-prob
+    go into the trajectory; the env gets it clipped to [-1, 1].  The
+    rollout times no parts of its own (`timings` is left as it is)."""
+    loop = _rollout_loop(
+        env, cfg, debug_nans, observe=lambda merged: merged.obs,
+        finishing_obs=lambda raw, merged: merged.final_obs,
+        stored=lambda obs: obs)
 
-    def rollout(ts: TrainState, env_state: EnvState, noise=None):
+    def rollout(ts: TrainState, env_state: EnvState, noise=None,
+                timings: Optional[Dict] = None):
+        es, _, traj = loop(ts, env_state, env_state.obs, noise)
+        return es, traj
+
+    return rollout
+
+
+def _rollout_loop(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool,
+                  observe, finishing_obs, stored):
+    """The rollout of both learners: loop(train_state, env_state, obs,
+    noise=None, timings=None) -> (env_state, obs, trajectory).  Each step
+    acts on `obs`, steps the envs in chunks of `cfg.step_chunk`, and
+    takes the next policy input from observe(merged state).  A
+    truncation's bootstrap value is that of finishing_obs(raw, merged),
+    computed only when some env truncated.  The trajectory holds
+    stored(obs).  `timings`, when given, receives the ms of the policy,
+    the physics and the observation (`render_ms`)."""
+
+    def loop(ts: TrainState, es: EnvState, obs, noise=None,
+             timings: Optional[Dict] = None):
+        parts = dict(physics_ms=0.0, render_ms=0.0, policy_ms=0.0)
+        clock = _Clock(env.device) if timings is not None else None
+
+        def lap(part):
+            if clock:
+                parts[part] += clock.lap()
+
         out = []
         with torch.no_grad():
-            es = env_state
             for t in range(cfg.n_steps):
-                action, logp, value = act(ts.module, es.obs, ts.generator,
+                action, logp, value = act(ts.module, obs, ts.generator,
                                           None if noise is None else noise[t])
-                es2 = _chunked(env.step_auto_reset, es,
-                               torch.clamp(action, -1.0, 1.0),
-                               cfg.step_chunk, ts.reset_generator)
+                lap("policy_ms")
+                merged, raw = _chunked(
+                    env._step_auto_reset_pair, es,
+                    torch.clamp(action, -1.0, 1.0), cfg.step_chunk,
+                    ts.reset_generator)
                 if debug_nans:
-                    _raise_on_quarantine(t, es, es2)
-                # Truncation bootstrap: at a cap boundary es2.obs is the
-                # next episode's; the finishing obs is final_obs.
-                v_final = ts.module(es2.final_obs)[2]
-                trunc_boot = torch.where(es2.truncated, v_final,
-                                         torch.zeros_like(v_final))
+                    _raise_on_quarantine(t, es, merged)
+                lap("physics_ms")
+                # the next policy input: a fresh episode's at a reset
+                nxt = observe(merged)
+                trunc_boot = torch.zeros_like(value)
+                if bool(merged.truncated.any()):
+                    final = finishing_obs(raw, merged)
+                    lap("render_ms")
+                    trunc_boot = torch.where(merged.truncated,
+                                             ts.module(final)[2], trunc_boot)
+                    lap("policy_ms")
+                else:
+                    lap("render_ms")
                 out.append(Transition(
-                    obs=es.obs, action=action, log_prob=logp, value=value,
-                    reward=es2.reward, done=es2.done,
+                    obs=stored(obs), action=action, log_prob=logp,
+                    value=value, reward=merged.reward, done=merged.done,
                     trunc_boot=trunc_boot))
-                es = es2
-        return es, Transition(*(torch.stack(xs) for xs in zip(*out)))
+                es, obs = merged, nxt
+        if timings is not None:
+            timings.update(parts)
+        return es, obs, Transition(*(torch.stack(xs) for xs in zip(*out)))
+
+    return loop
+
+
+def make_pixel_ppo(penv, num_envs: int, cfg: PPOConfig = PPOConfig(),
+                   device="cuda", debug_nans: bool = False):
+    """PPO on 64x64 pixel observations with the CNN actor-critic
+    (`ppo.py:207-281`, the reference's `model_type == "cnn"` family):
+    (init_fn, train_iter_fn, act_fn) as `make_ppo`, over the
+    `PixelEnvState`s of `penv` (an `envs.pixels.PixelObservationEnv`).
+    `train_iter_fn(..., timings=d)` fills d with the ms of the rollout
+    and of its physics, render and policy parts, of GAE and of the
+    update."""
+    env = penv.env
+    dev = check_device(env, device)
+
+    def init_fn(seed: int) -> TrainState:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        module = N.CnnActorCritic(env.nu, penv.height, generator=gen,
+                                  device=dev, dtype=env.dtype)
+        return TrainState(module=module,
+                          optimizer=make_optimizer(module, cfg),
+                          generator=gen,
+                          reset_generator=env.generator(seed + 1))
+
+    return init_fn, _make_train_iter(
+        cfg, dev, make_pixel_rollout(penv, cfg, debug_nans),
+        lambda ps: ps.pixels, lambda ps: ps.state), act
+
+
+def make_pixel_rollout(penv, cfg: PPOConfig, debug_nans: bool = False):
+    """rollout(train_state, pixel_state, noise=None, timings=None) ->
+    (pixel_state, trajectory): `cfg.n_steps` auto-reset steps of the
+    pixel envs (`ppo.py:243-266`), rendering in chunks of
+    `cfg.pixel_chunk` envs.  Each frame goes into the trajectory as
+    round(pixels) in uint8 (round half to even), the frames the update
+    recomputes the policy on.  At a truncation the finishing frame is
+    rendered from the raw post-step state, only when some env
+    truncated."""
+    from ..envs.pixels import PixelEnvState
+    loop = _rollout_loop(
+        penv.env, cfg, debug_nans,
+        observe=lambda merged: penv._render(merged, cfg.pixel_chunk),
+        finishing_obs=lambda raw, merged: penv._render(raw, cfg.pixel_chunk),
+        stored=lambda pixels: torch.round(pixels).to(torch.uint8))
+
+    def rollout(ts: TrainState, ps: PixelEnvState, noise=None,
+                timings: Optional[Dict] = None):
+        state, pixels, traj = loop(ts, ps.state, ps.pixels, noise, timings)
+        return PixelEnvState(state=state, pixels=pixels), traj
 
     return rollout
 

@@ -26,13 +26,21 @@ def _chunks(B: int, chunk_size: int):
 
 
 def _chunked(fn: Callable, state: EnvState, actions: torch.Tensor,
-             chunk_size: int, *extra) -> EnvState:
+             chunk_size: int, *extra):
+    """fn(state, actions, *extra) over chunks of the envs, its results
+    joined again: an EnvState or a tuple of them."""
     parts = _chunks(state.batch, chunk_size)
     if len(parts) == 1:
         return fn(state, actions, *extra)
     outs = [fn(state.map(lambda x: x[i:j]), actions[i:j], *extra)
             for i, j in parts]
-    return outs[0].map(lambda *xs: torch.cat(xs, dim=0), *outs[1:])
+
+    def cat(sts):
+        return sts[0].map(lambda *xs: torch.cat(xs, dim=0), *sts[1:])
+
+    if isinstance(outs[0], tuple):
+        return tuple(cat(sts) for sts in zip(*outs))
+    return cat(outs)
 
 
 class VectorEnv:

@@ -5,13 +5,14 @@
     python -m mj_envs_torch.run configs/door_npg.json npg
     python -m mj_envs_torch.run configs/relocate_sac.json sac
     python -m mj_envs_torch.run configs/door_npg.json dapg
+    python -m mj_envs_torch.run configs/hammer_planet.json planet
 
-Policy types: ppo, npg (natural policy gradient), sac (soft
-actor-critic), dapg or default (evaluate the pretrained DAPG policy of
-the config's task, from the reference checkout's pickles).  Runs on the
-card named by the config's `device_type` ("cuda" unless the config says
-"cpu").  planet exits with a message naming the slice of the port that
-brings it.
+Policy types: ppo (on pixels when the config's `model_type` is "cnn"),
+npg (natural policy gradient), sac (soft actor-critic), dapg or default
+(evaluate the pretrained DAPG policy of the config's task, from the
+reference checkout's pickles), planet (RSSM and CEM on pixel
+observations).  Runs on the card named by the config's `device_type`
+("cuda" unless the config says "cpu").
 
 MJE_DEBUG_NANS=1 turns on `torch.autograd.set_detect_anomaly` (a
 backward op that produces NaN raises with the forward op's traceback)
@@ -25,10 +26,7 @@ import os
 import sys
 import time
 
-LATER = {
-    "planet": "PlaNet comes with the renderer and the pixel envs",
-}
-POLICY_TYPES = ("ppo", "npg", "sac", "dapg", "default")
+POLICY_TYPES = ("ppo", "npg", "sac", "dapg", "default", "planet")
 
 
 def main(argv):
@@ -40,9 +38,6 @@ def main(argv):
 
     config_path = argv[1] if len(argv) > 1 else None
     policy_type = argv[2] if len(argv) > 2 else "ppo"
-    if policy_type in LATER:
-        sys.exit(f"policy type {policy_type!r} is not in the PyTorch port "
-                 f"yet: {LATER[policy_type]}, a later slice of the port")
     if policy_type not in POLICY_TYPES:
         raise ValueError(f"unknown policy type {policy_type}")
 
@@ -88,9 +83,12 @@ def main(argv):
     elif policy_type == "npg":
         from mj_envs_torch.utils.train import train_npg_policy
         train_npg_policy(config, env, out_dir)
-    else:
+    elif policy_type == "sac":
         from mj_envs_torch.utils.train import train_sac_policy
         train_sac_policy(config, env, out_dir)
+    else:
+        from mj_envs_torch.utils.train import train_planet_policy
+        train_planet_policy(config, env, out_dir)
     print(f"done in {time.time() - t0:.0f}s -> {out_dir}")
 
 

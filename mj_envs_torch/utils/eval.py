@@ -6,8 +6,9 @@ and `success |= goal_achieved` per episode, trajectories returned.  Here
 stepped with the plain `env.step` (no auto-reset: the episode has a
 fixed length).  The env-level success metric (% of paths with more than
 SUCCESS_STEPS goal-achieved steps) comes from the same rollout.  The
-DAPG policy goes through `dapg_policy_apply`; the pixel and PlaNet
-evaluators and the `run_eval` CLI come in later slices of the port.
+DAPG policy goes through `dapg_policy_apply`; `make_pixel_evaluate`
+feeds a pixel policy the rendered frames, and `make_planet_evaluate`
+acts through PlaNet's belief filter and planner.
 """
 from __future__ import annotations
 
@@ -37,13 +38,21 @@ def make_evaluate(env: AdroitEnv, policy_apply: Callable,
     generator (on the env's device, seeded by `seed`) also draws the
     resets."""
 
+    return _make_evaluate(env, policy_apply, episode_length,
+                          lambda st: st.obs)
+
+
+def _make_evaluate(env: AdroitEnv, policy_apply: Callable,
+                   episode_length: int, observe: Callable):
+    """`make_evaluate` with the policy fed observe(state)."""
+
     def evaluate(params, seed: int = 0, count: int = 10) -> EvalResult:
         gen = env.generator(seed)
         outs = []
         with torch.no_grad():
             st = env.reset(count, gen)
             for _ in range(episode_length):
-                st = env.step(st, policy_apply(params, st.obs, gen))
+                st = env.step(st, policy_apply(params, observe(st), gen))
                 outs.append((st.obs, st.reward, st.goal_achieved, st.done,
                              st.data.qpos))
         return _finish_eval(env, *(torch.stack(xs) for xs in zip(*outs)))
@@ -81,3 +90,64 @@ def dapg_policy_apply(act_fn: Callable):
         del params, generator
         return torch.clamp(act_fn(obs), -1.0, 1.0)
     return apply
+
+
+def make_pixel_evaluate(penv, policy_apply: Callable, episode_length: int):
+    """`make_evaluate` for a stateless pixel policy (the CNN-PPO family,
+    `eval.py:88-121`): policy_apply(params, pixels, generator) -> action
+    in [-1, 1], fed the frames `penv` renders after each step."""
+    return _make_evaluate(penv.env, policy_apply, episode_length,
+                          penv._render)
+
+
+def make_planet_evaluate(env: AdroitEnv, config, episode_length: int):
+    """Evaluate a PlaNet policy through its act path (`eval.py:124-171`;
+    the reference's `Planet.act`, `baselines.py:311-320`): each step the
+    frame is preprocessed to `config.bit_depth` bits with dequantization
+    noise, the belief filtered with the last action, and the action
+    planned by CEM.  The `count` envs filter and plan as one batch.
+    `evaluate(module, seed, count)`; the generator seeded by `seed`
+    draws the resets and every noise."""
+    from ..algos import planet as PL
+    from ..envs.pixels import PixelObservationEnv
+    from ..render.raster import images_to_observation
+
+    penv = PixelObservationEnv(env)
+    cfg = PL.cfg_from_config(config, env.nu)
+    _, _, infer_step, plan = PL.make_planet(cfg, device=env.device,
+                                            dtype=env.dtype)
+
+    def evaluate(module, seed: int = 0, count: int = 10) -> EvalResult:
+        gen = env.generator(seed)
+        outs = []
+        with torch.no_grad():
+            st = env.reset(count, gen)
+            pix = penv._render(st)
+            h = torch.zeros((count, cfg.belief_size), dtype=env.dtype,
+                            device=env.device)
+            s = torch.zeros((count, cfg.state_size), dtype=env.dtype,
+                            device=env.device)
+            a = torch.zeros((count, env.nu), dtype=env.dtype,
+                            device=env.device)
+            for _ in range(episode_length):
+                obs = images_to_observation(pix, config.bit_depth, gen)
+                h, s = infer_step(module, h, s, a, obs, gen)
+                a = plan(module, h, s, gen)
+                st = env.step(st, a)
+                pix = penv._render(st)
+                outs.append((st.obs, st.reward, st.goal_achieved, st.done,
+                             st.data.qpos))
+        return _finish_eval(env, *(torch.stack(xs) for xs in zip(*outs)))
+
+    return evaluate
+
+
+def load_planet_params(config, env: AdroitEnv):
+    """The PlaNet module of the checkpoint at `config.models_path` (as
+    `train_planet_policy` saves it, {"params", "opt_state"}), with the
+    shapes `config` implies, on the env's device."""
+    from ..algos import planet as PL
+    from . import checkpoint as CKPT
+    cfg = PL.cfg_from_config(config, env.nu)
+    init_fn = PL.make_planet(cfg, device=env.device, dtype=env.dtype)[0]
+    return CKPT.restore(config.models_path, init_fn(0)).params

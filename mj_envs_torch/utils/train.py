@@ -1,14 +1,15 @@
-"""Training loops of the PyTorch port (`mj_envs_tpu/utils/train.py:
-31-283`): the PPO, NPG/DAPG and SAC trainers on state observations.
+"""Training loops of the PyTorch port (`mj_envs_tpu/utils/train.py`):
+the PPO trainer on state or pixel observations, the NPG/DAPG and SAC
+trainers, and the PlaNet trainer.
 
 One "episode" is one learner iteration over `num_envs` envs on the env's
 device (`algos/ppo.py`, `algos/npg.py`, `algos/sac.py`); the host loop
 keeps the reference cadence: evaluation every `test_interval`,
 checkpoints every `checkpoint_interval`, metrics logging.  PPO resumes
-from the latest checkpoint when `models_path` is set; the NPG and SAC
-loop has no resume, as the JAX package's has none.  Pixel PPO
-(`model_type == "cnn"`) and PlaNet come in later slices of the port and
-raise here.
+from the latest checkpoint when `models_path` is set; the NPG, SAC and
+PlaNet loops have no resume, as the JAX package's have none.  PlaNet
+alternates gradient steps on replayed sequences with one single-env
+rollout per episode (`train_planet_policy`).
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ from ..algos import npg as NPG
 from ..algos import ppo as PPO
 from ..algos import sac as SAC
 from ..envs.base import AdroitEnv
+from ..envs.pixels import PixelObservationEnv
 from . import checkpoint as CKPT
-from .eval import make_evaluate
+from .eval import make_evaluate, make_pixel_evaluate
 
 PROF = True
 
@@ -117,31 +119,42 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
                      debug_nans: bool = False,
                      callback: Optional[Callable] = None):
     """PPO training to `config.max_episodes` iterations on
-    `config.device_type` (the card by default; the env must be on it).
-    Returns (train_state, metrics).
+    `config.device_type` (the card by default; the env must be on it),
+    on state observations or, with `model_type` "cnn", on 64x64 pixels
+    through the CNN actor-critic.  Returns (train_state, metrics).
 
     Each iteration's row holds the PPO metrics, env-steps/s and the ms
-    of its rollout, GAE and update; `callback(episode, row)`, when
+    of its rollout (for pixels also of its physics, render and policy
+    parts), GAE and update; `callback(episode, row)`, when
     given, is called after each iteration.  `debug_nans` raises on an
     env state that the quarantine would restart."""
     out_dir = out_dir or (config.log_path or "results")
     cfg = ppo_config(config)
     num_envs = config.num_envs
     model_type = getattr(config, "model_type", "mlp") or "mlp"
-    if model_type == "cnn":
-        raise NotImplementedError(
-            "pixel PPO (model_type 'cnn') comes with the renderer and the "
-            "pixel envs, a later slice of the port")
-    init_fn, train_iter_fn, act_fn = PPO.make_ppo(
-        env, num_envs, cfg, device=config.device_type, debug_nans=debug_nans)
 
     def eval_policy(module, obs, generator):
         return torch.clamp(module(obs)[0], -1.0, 1.0)
 
-    evaluate = make_evaluate(env, eval_policy, env.MAX_EPISODE_STEPS)
+    if model_type == "cnn":
+        # Pixel PPO (the reference's ActorCriticCnnPolicy over pixels,
+        # baselines.py:120-134).
+        penv = PixelObservationEnv(env)
+        init_fn, train_iter_fn, _ = PPO.make_pixel_ppo(
+            penv, num_envs, cfg, device=config.device_type,
+            debug_nans=debug_nans)
+        reset = penv.reset
+        evaluate = make_pixel_evaluate(penv, eval_policy,
+                                       env.MAX_EPISODE_STEPS)
+    else:
+        init_fn, train_iter_fn, _ = PPO.make_ppo(
+            env, num_envs, cfg, device=config.device_type,
+            debug_nans=debug_nans)
+        reset = env.reset
+        evaluate = make_evaluate(env, eval_policy, env.MAX_EPISODE_STEPS)
 
     train_state = init_fn(config.seed)
-    env_state = env.reset(num_envs, train_state.reset_generator)
+    env_state = reset(num_envs, train_state.reset_generator)
 
     # Resume (reference baselines.py:149-161).
     latest = CKPT.latest(out_dir)
@@ -290,7 +303,126 @@ def train_sac_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
                           cfg.steps_per_iter, callback)
 
 
-def train_planet_policy(config, env, out_dir=None):
-    raise NotImplementedError(
-        "the PlaNet trainer comes with the renderer and the pixel envs, "
-        "a later slice of the port")
+def train_planet_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
+                        callback: Optional[Callable] = None):
+    """PlaNet training (`train.py:287-407`, the reference's
+    `train_policy`, train.py:93-176) on `config.device_type`.
+
+    The replay is seeded with episodes of uniform random actions (from
+    `np.random.default_rng(config.seed)`) until it holds
+    max(batch_size, chunk_size) steps and `seed_episodes` episodes; then
+    each episode takes `sample_iters` gradient steps on sampled chunks
+    and one single-env exploration rollout, acting on the planned action
+    plus `action_noise` x U[0, 1) (the reference's noise, not
+    zero-mean).  Every rollout has max_episode_length // action_repeat
+    steps, its last step terminal, and each step appends the frame the
+    action was computed from.  A checkpoint {"params", "opt_state"}
+    every `checkpoint_interval` episodes.  Each episode's row holds the
+    losses, the rollout's reward, the ms of one batch's sampling and of
+    one update, the collect ms, the plan's ms per step, the collect
+    env-steps/s and the episode's env-steps/s (its rollout's steps over
+    its updates and rollout); `callback(episode, row)`,
+    when given, is called after each.  Returns (PlanetState, metrics)."""
+    from ..algos import planet as PL
+    from ..algos import replay as RP
+    from ..algos.ppo import _Clock
+    from ..render.raster import images_to_observation
+
+    out_dir = out_dir or (config.log_path or "results")
+    dev = PPO.check_device(env, config.device_type)
+    penv = PixelObservationEnv(env)
+    cfg = PL.cfg_from_config(config, env.nu)
+    init_fn, update_fn, infer_step, plan = PL.make_planet(
+        cfg, device=dev, dtype=env.dtype)
+    state = init_fn(config.seed)
+    gen = torch.Generator(device=dev).manual_seed(config.seed + 1)
+    mem = RP.ExperienceReplay(
+        config.experience_size, (64, 64, 3), env.nu,
+        bit_depth=config.bit_depth, seed=config.seed)
+    T = config.max_episode_length // config.action_repeat
+
+    def append(pre_pixels, ps, action, last: bool):
+        """The frame the action was computed from goes in with the step's
+        reward; the rollout's last step is terminal (the reference's
+        PlaNet env wrapper ends an episode at max_episode_length; without
+        it the seed loop below would never end on the three tasks that
+        never terminate)."""
+        reward = float(ps.state.reward[0])
+        mem.append(pre_pixels[0].cpu().numpy(), np.asarray(action),
+                   reward, bool(ps.state.done[0]) or last)
+        return reward
+
+    def collect(explore_noise: float, times: Dict[str, float]):
+        """One single-env rollout acting through the filter and the
+        planner (`collect_experience`, train.py:179-195): its reward."""
+        module = state.params
+        clock = _Clock(dev)
+        ps = penv.reset(1, gen)
+        h = torch.zeros((1, cfg.belief_size), dtype=env.dtype, device=dev)
+        s = torch.zeros((1, cfg.state_size), dtype=env.dtype, device=dev)
+        a = torch.zeros((1, env.nu), dtype=env.dtype, device=dev)
+        total_r = 0.0
+        for t in range(T):
+            pre = ps.pixels
+            obs = images_to_observation(pre, config.bit_depth, gen)
+            h, s = infer_step(module, h, s, a, obs, gen)
+            a = plan(module, h, s, gen)
+            times["plan_ms"] += clock.lap()
+            if explore_noise > 0:
+                a = torch.clamp(a + explore_noise * torch.rand(
+                    a.shape, generator=gen, device=dev, dtype=a.dtype),
+                    -1.0, 1.0)
+            ps = penv.step(ps, a, gen)
+            total_r += append(pre, ps, a[0].cpu().numpy(), t == T - 1)
+            times["env_ms"] += clock.lap()
+        return total_r
+
+    rng = np.random.default_rng(config.seed)
+    t_seed = time.perf_counter()
+    while mem.steps < max(config.batch_size, config.chunk_size) \
+            or mem.episodes < config.seed_episodes:
+        ps = penv.reset(1, gen)
+        for t in range(T):
+            a = rng.uniform(-1, 1, env.nu).astype(np.float32)
+            pre = ps.pixels
+            ps = penv.step(ps, torch.as_tensor(a, device=dev)[None], gen)
+            append(pre, ps, a, t == T - 1)
+    if PROF:
+        print(f"planet: replay seeded ({mem.steps} steps, "
+              f"{time.perf_counter() - t_seed:.1f} s)", flush=True)
+
+    metrics = Metrics(tb_dir=out_dir)
+    prof = ProfilerHook()
+    for episode in range(config.seed_episodes + 1, config.max_episodes + 1):
+        prof.before(episode)
+        clock = _Clock(dev)
+        times = dict(sample_ms=0.0, update_ms=0.0, plan_ms=0.0, env_ms=0.0)
+        for _ in range(config.sample_iters):
+            batch = mem.sample(config.batch_size, config.chunk_size)
+            times["sample_ms"] += clock.lap()
+            m = update_fn(state, batch, gen)
+            times["update_ms"] += clock.lap()
+        total_r = collect(config.action_noise, times)
+        collect_ms = times["plan_ms"] + times["env_ms"]
+        prof.after(episode)
+        n = max(config.sample_iters, 1)
+        episode_ms = sum(times.values())
+        row = dict(episode=episode, reward=total_r,
+                   steps_per_s=T / episode_ms * 1e3,
+                   sample_ms=times["sample_ms"] / n,
+                   update_ms=times["update_ms"] / n,
+                   collect_ms=collect_ms, plan_ms=times["plan_ms"] / T,
+                   collect_steps_per_s=T / collect_ms * 1e3,
+                   **{k: float(v) for k, v in m.items()})
+        metrics.append(**row)
+        if callback is not None:
+            callback(episode, row)
+        if PROF:
+            print(f"planet ep {episode}: reward {total_r:.1f} obs_loss "
+                  f"{row['obs_loss']:.1f} kl {row['kl_loss']:.2f}",
+                  flush=True)
+        if episode % config.checkpoint_interval == 0:
+            CKPT.save(CKPT.checkpoint_path(out_dir, episode), state)
+    metrics.save_csv(os.path.join(out_dir, "metrics.csv"))
+    metrics.close()
+    return state, metrics

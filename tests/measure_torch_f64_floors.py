@@ -2,9 +2,12 @@
 with the worst (CPU):
 
     JAX_PLATFORMS=cpu python tests/measure_torch_f64_floors.py \
-        [f64] [f32] [oracle] [env_state]
+        [f64] [stages] [f32] [oracle] [env_state]
 
 * f64: `test_torch_f64.py`'s stages, substeps and hammer trajectory;
+* stages: `test_torch_f64.py`'s stages at 1 and at 6 torch threads, each
+  stage's max |error|, its max |value| and the error in units of
+  eps64 x max |value| (the unit of the bounds in `REL_BOUNDS`);
 * f32: the 50-substep trajectory of each task file (`test_torch_hammer.py`
   and its siblings);
 * oracle: `test_torch_oracle.py`, the port's float64 step against mujoco;
@@ -39,7 +42,7 @@ def show(title, per_seed):
 
 def main():
     torch.set_num_threads(2)
-    what = sys.argv[1:] or ["f64", "f32", "oracle", "env_state"]
+    what = sys.argv[1:] or ["f64", "stages", "f32", "oracle", "env_state"]
     if "f64" in what:
         import test_torch_f64 as F
         show("stages (hammer)", [F.stage_errors(s) for s in SEEDS])
@@ -47,6 +50,8 @@ def main():
             show(f"substep {task}", [F.substep_errors(task, s)
                                      for s in SEEDS])
         show("hammer 50 substeps", [F.trajectory_errors(s) for s in SEEDS])
+    if "stages" in what:
+        stages_scaled()
     if "f32" in what:
         import test_torch_hammer as TH
         for task in ("hammer-v0", "door-v0", "pen-v0", "relocate-v0"):
@@ -61,6 +66,28 @@ def main():
 
     if "env_state" in what:
         env_state()
+
+
+def stages_scaled():
+    import test_torch_f64 as F
+    eps = float(np.finfo(np.float64).eps)
+    worst = {}
+    for threads in (1, 6):
+        torch.set_num_threads(threads)
+        for seed in SEEDS:
+            scales = {}
+            errs = F.stage_errors(seed, scales)
+            print(f"stages, seed {seed}, {threads} thread(s): "
+                  "error / max |value| / error in eps64 x max |value|")
+            for k, e in errs.items():
+                u = e / (eps * scales[k])
+                worst[k] = max(worst.get(k, 0.0), u)
+                print(f"  {k:24s} {e:.3e}  {scales[k]:.3e}  {u:.3g}",
+                      flush=True)
+    print("worst in eps64 x max |value| (seeds 0-2, 1 and 6 threads):")
+    for k, u in worst.items():
+        print(f"  {k:24s} {u:.3g}   4x: {4 * u:.3g}")
+    torch.set_num_threads(2)
 
 
 def env_state():

@@ -2,8 +2,10 @@
 error over seeds 0, 1 and 2 of each quantity the tests bound.
 
     JAX_PLATFORMS=cpu python tests/measure_torch_learner_floors.py \
-        [networks] [ppo] [npg] [sac] [npg_pair] [sac_pair]
+        [networks] [ppo] [npg] [sac] [npg_pair] [sac_pair] [pixel_ppo] \
+        [planet]
     python tests/measure_torch_learner_floors.py card_pairs   # on a card
+    python tests/measure_torch_learner_floors.py card_pixel_pairs  # card
 
 * networks: `test_torch_networks.py`, the actor-critic, log-prob and
   entropy against the JAX package in float64 and float32;
@@ -25,10 +27,21 @@ error over seeds 0, 1 and 2 of each quantity the tests bound.
 * sac_pair: phase 7d's SAC iteration (8 relocate-v0 envs x 2 steps, 2
   updates at batch 8) on the CPU, float32 against float64 (`sac_diffs`):
   the readings behind `SAC_PAIR_BOUNDS` (4x the worst);
+* pixel_ppo: `test_torch_pixel_ppo.py`, one pixel-PPO rollout of 4
+  hammer-v0 envs x 2 steps (float32, 1 thread) and the update on its
+  JAX trajectory (float64, float32);
+* planet: `test_torch_planet.py`, the loss and gradients and one update
+  (float64) and the float32 planner's top-k swaps;
 * card_pairs (on a machine with a card; imports no JAX): phase 7d's
   pairs card against CPU at seeds 0-2, NPG also at 8 envs x 2 steps and
   twice on the card in float64, and the CPU's float64 iteration at 1
   thread against all its cores.
+* card_pixel_pairs (on a machine with a card; imports no JAX): phase 8's
+  pairs card against CPU at seeds 0-2: the pixel-PPO rollout and its
+  update on one shared trajectory (float32, float64), and PlaNet's
+  update at full width on one synthetic batch (float32, float64: the
+  losses, gradients and params): the readings behind
+  `PIXEL_PAIR_BOUNDS`, `PIXEL_UPDATE_BOUNDS` and `PLANET_UPDATE_BOUNDS`.
 
 (Not collected by pytest: the name does not start with `test_`.)
 """
@@ -128,11 +141,36 @@ def card_pairs():
         show(f"seed {s}, SAC, float32, card vs CPU", [CS.sac_diffs(*runs)])
 
 
+def card_pixel_pairs():
+    """Phase 8's pairs card against CPU at seeds 0-2 (see the top)."""
+    import chip_smoke as CS
+    from mj_envs_torch import envs
+    from mj_envs_torch.algos import planet as PL
+    from mj_envs_torch.utils.config import PlanetConfig, PPOConfig
+    ppo = PPOConfig().load(os.path.join(CS.ROOT, CS.PPO_CONFIG))
+    ppo.model_type = "cnn"
+    planet = PlanetConfig().load(os.path.join(CS.ROOT, CS.PLANET_CONFIG))
+    cfg = PL.cfg_from_config(planet, envs.make(planet.env_name,
+                                               device="cpu").nu)
+    for s in SEEDS:
+        show(f"seed {s}, pixel PPO {CS.PAIR_ENVS} envs, card vs CPU",
+             [CS.pixel_pair_diffs(CS.pixel_ppo_pair(envs, ["cuda", "cpu"],
+                                                    ppo, seed=7 + s))])
+        tree = PL.planet_to_numpy(PL.make_planet(cfg, device="cpu")[0](s)
+                                  .params)
+        out = CS.planet_update_pair(["cuda", "cpu"], cfg, tree, seed=11 + s)
+        for dt in out:
+            show(f"seed {s}, PlaNet update ({dt}), card vs CPU",
+                 [CS.planet_update_diffs(out[dt], cfg.lr)])
+
+
 def main():
     what = sys.argv[1:] or ["networks", "ppo", "npg", "sac", "npg_pair",
                             "sac_pair"]
     if "card_pairs" in what:
         return card_pairs()
+    if "card_pixel_pairs" in what:
+        return card_pixel_pairs()
     import conftest  # noqa: F401  (JAX on the CPU, x64 as in the tests)
     torch.set_num_threads(2)
     if "networks" in what:
@@ -151,6 +189,24 @@ def main():
                  [TP.update_errors(s, dt) for s in SEEDS])
         show("door-v0 iteration (float64)",
              [TP.iteration_errors(torch.float64, s) for s in SEEDS])
+
+    if "pixel_ppo" in what:
+        import test_torch_pixel_ppo as TPP
+        torch.set_num_threads(1)
+        show("pixel PPO rollout, hammer 4 x 2 (float32)",
+             [TPP.pixel_iteration_errors(s) for s in SEEDS])
+        for dt in (torch.float64, torch.float32):
+            show(f"pixel PPO update on the JAX trajectory ({dt})",
+                 [TPP.pixel_update_errors(s, dt) for s in SEEDS])
+        torch.set_num_threads(2)
+    if "planet" in what:
+        import test_torch_planet as TPL
+        show("loss and gradients (float64)",
+             [TPL.loss_errors(s, torch.float64) for s in SEEDS])
+        show("update (float64)",
+             [TPL.update_errors(s, torch.float64) for s in SEEDS])
+        show("float32 plan, top-k swaps per iteration (worst)",
+             [dict(swaps=TPL.f32_swaps(s)) for s in SEEDS])
 
     if "npg" in what:
         import test_torch_dapg as TD

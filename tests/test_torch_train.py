@@ -199,17 +199,24 @@ def test_learners_default_to_the_card(door):
 
 
 def test_later_slices_raise(door, tmp_path):
-    with pytest.raises(NotImplementedError, match="renderer"):
-        TT.train_ppo_policy(small_config(model_type="cnn"), door,
-                            str(tmp_path))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        TT.train_planet_policy(small_config(), door, str(tmp_path))
-    # npg, sac and dapg run since the learners' slice
-    # (`tests/test_torch_train_learners.py`); planet alone still exits.
-    assert set(trun.LATER) == {"planet"}
-    with pytest.raises(SystemExit, match="later slice"):
-        trun.main(["run", os.path.join(ROOT, "configs", "hammer_ppo.json"),
-                   "planet"])
+    """Pixel PPO and PlaNet, the slices that came after this file's, run
+    now (`tests/test_torch_pixel_ppo.py`, `tests/test_torch_planet.py`);
+    like every learner they raise, with no fallback, where the config
+    asks for the card and the env is not on one.  run.py lists every
+    policy type of the JAX package's."""
+    for train, kw in ((TT.train_ppo_policy, dict(model_type="cnn")),
+                      (TT.train_planet_policy, {})):
+        c = small_config(**kw)
+        c.device_type = "cuda"
+        with pytest.raises((RuntimeError, ValueError), match="CUDA|env is"):
+            train(c, door, str(tmp_path))
+    assert not hasattr(trun, "LATER")
+    assert set(trun.POLICY_TYPES) == {"ppo", "npg", "sac", "dapg",
+                                      "default", "planet"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            trun.main(["run", os.path.join(ROOT, "configs",
+                                           "hammer_planet.json"), "planet"])
 
 
 def test_debug_nans_raises_on_a_quarantined_env(door):
