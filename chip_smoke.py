@@ -86,7 +86,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
    update on one shared trajectory (float32, float64), one PlaNet update
    on a synthetic batch (float32: losses, gradients; float64: params),
    the float64 planner's top-k sets, and one hammer step at B = 1;
-   then the `[8] launches` line, phases 5-8 together, one JSON line
+9. the CLIs and the distributed runtime, on hammer-v0: 9a `run_eval`
+   with the DAPG policy of a synthetic mjrl pickle and with phase 6's
+   PPO checkpoint (1 episode of 10 envs, cut to 10 steps), its gif and
+   plots decoded, the worst trajectory's first frames card vs CPU
+   (phase 8a's pixel share); 9b one `visualize` episode of the pickle's
+   policy (cut to 10 steps); 9c a headless `InteractiveViewer` (Agg)
+   for 3 steps, its frame card vs CPU; 9d the second of two env shards
+   (rows [2048, 4096) of 4096, its generator skipping the first shard's
+   reset draws) against those rows of the plain VectorEnv bit for bit,
+   with no process group, through a reset and a step that resets
+   every env; then a one-rank NCCL group from torchrun's
+   variables (`parallel/distributed.initialize`):
+   `VectorEnv(mesh=make_mesh())` at 4096 envs, chunk 512, 2 steps,
+   against the same VectorEnv without a mesh bit for bit, the two rates
+   side by side, then `dryrun_multichip(1)`; the group torn down.  Each
+   of 9a-9d runs with the launch counts at 0 and must launch K1-K6;
+   then the `[9] launches` line, phases 5-9 together, one JSON line
    listing the kernels, and the device line.
 
 Phase 3 also prints SHA-256 digests of the outputs of the factor
@@ -873,6 +889,7 @@ def main_path(TK, envs, VectorEnv, random_actions, dev, task, num_envs,
 
 
 PPO_CONFIG = os.path.join("configs", "hammer_ppo.json")
+PPO_KEPT = "ppo_ckpt_00000002.pt"     # phase 6's checkpoint, for phase 9
 # Phase 6's cuts of the config (length only; every width stays).
 PPO_CUTS = dict(n_steps=8, max_episodes=2, checkpoint_interval=2)
 EVAL_LENGTH, EVAL_COUNT = 5, 10
@@ -882,11 +899,13 @@ PAIR_ENVS, PAIR_CFG = 8, dict(n_steps=2, n_minibatches=2, n_epochs=2,
 PAIR_TOL = dict(rtol=1e-3, atol=2e-3)     # phase 4's
 
 
-def trainer_phase(TK, envs, dev, info):
+def trainer_phase(TK, envs, dev, info, keep):
     """Phase 6: `train_ppo_policy` on the card at the config's widths,
     then one small iteration card against CPU on the same randomness.
-    Returns the launches of the training run (both iterations and the
-    evaluation)."""
+    Its last checkpoint is copied to `keep` (PPO_KEPT; phase 9
+    evaluates it).  Returns the launches of the training run (both
+    iterations and the evaluation)."""
+    import shutil
     import tempfile
 
     from mj_envs_torch.algos import networks as NN, ppo as PPO
@@ -947,6 +966,7 @@ def trainer_phase(TK, envs, dev, info):
         log(f"  checkpoint {os.path.basename(latest)} restored: params bit "
             f"for bit: {same}")
         check(same, "restore did not reproduce the params")
+        shutil.copy(latest, os.path.join(keep, PPO_KEPT))
     one = {k: snaps[1][k] - snaps[0][k] for k in TK.KERNELS}
     log(f"  launches of iteration 2 ({cfg.n_steps} steps x "
         f"{config.num_envs // cfg.step_chunk} chunks x 5 substeps): "
@@ -2085,6 +2105,288 @@ def pixel_phase(TK, envs, dev, info):
     return launches
 
 
+# Phase 9: the CLIs and the distributed runtime.
+CLI_STEPS = 10           # phase 9's episodes: hammer's 200 steps cut to 10
+EVAL_EPISODES = 1        # of EVAL_COUNT envs each
+VIEWER_STEPS = 3
+CLI_FRAMES = 4           # frames of the worst trajectory held card vs CPU
+DIST_ENVS, DIST_STEPS = NUM_ENVS, 2
+SHARD_STEPS = 1          # two_shard_check's steps, the last resetting all
+
+
+def _decode_gif(path):
+    """The frames of a gif as (H, W, 3) uint8 arrays (PIL's decoder)."""
+    from PIL import Image
+    with Image.open(path) as im:
+        out = []
+        for i in range(im.n_frames):
+            im.seek(i)
+            out.append(np.asarray(im.convert("RGB")))
+    return out
+
+
+def _decode_png(path):
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def eval_phase(envs, dev, info, keep):
+    """9a: `run_eval` on hammer with the DAPG path (a synthetic pickle)
+    and with phase 6's PPO checkpoint, its artifacts decoded, and the
+    worst trajectory re-rendered card vs CPU."""
+    from mj_envs_torch import visualize as V
+    from mj_envs_torch.utils import eval as EV
+
+    pickle = write_mjrl_pickle(os.path.join(keep, "hammer-v0.pickle"),
+                               DAPG_SEED)
+    seen = []
+    render = V.render_state_trajectory
+
+    def spy(env, qpos_traj, *a, **k):
+        t0 = time.perf_counter()
+        frames = render(env, qpos_traj, *a, **k)
+        seen.append((np.asarray(qpos_traj), frames,
+                     time.perf_counter() - t0))
+        return frames
+
+    V.render_state_trajectory = spy
+    try:
+        for policy_type, models_path in (
+                ("dapg", ""), ("ppo", os.path.join(keep, PPO_KEPT))):
+            cfg = os.path.join(keep, f"eval_{policy_type}.json")
+            with open(cfg, "w") as f:
+                json.dump({"env_name": "hammer-v0", "seed": 0,
+                           "device_type": dev.type,
+                           "models_path": models_path}, f)
+            out = os.path.join(keep, f"eval_{policy_type}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, name = EV.run_eval(cfg, policy_type, episodes=EVAL_EPISODES,
+                                  out=out, episode_length=CLI_STEPS,
+                                  dapg_root=keep)
+            secs = time.perf_counter() - t0
+            qpos, frames, render_s = seen[-1]
+            gif = _decode_gif(os.path.join(out, f"{name}_0.gif"))
+            pngs = [_decode_png(os.path.join(out, f"{name}_eval_{k}.png"))
+                    for k in ("rewards", "success")]
+            check(len(gif) == CLI_STEPS and gif[0].shape == (128, 128, 3)
+                  and all(p.shape == (500, 1000, 3) and p.std() > 0
+                          for p in pngs), f"run_eval {policy_type} files")
+            gif_err = max(np.abs(g.astype(int) - f.astype(np.uint8)).max()
+                          for g, f in zip(gif, frames))
+            env_c = envs.make("hammer-v0", device="cpu")
+            cpu = render(env_c, qpos[:CLI_FRAMES])
+            share = max(pixel_share(torch.as_tensor(a), torch.as_tensor(b))
+                        for a, b in zip(frames[:CLI_FRAMES], cpu))
+            log(f"[9a] run_eval hammer-v0 {policy_type} "
+                f"({os.path.basename(models_path) or 'synthetic pickle'}): "
+                f"{EVAL_EPISODES} episode x {EVAL_COUNT} envs; cut: episode "
+                f"200 -> {CLI_STEPS} steps; {secs:.2f} s, "
+                f"{EVAL_EPISODES * EVAL_COUNT * CLI_STEPS / secs:.1f} "
+                f"env-steps/s with the gif and plots; worst trajectory "
+                f"rendered ({len(frames)} frames 128x128) in "
+                f"{render_s * 1e3:.1f} ms; gif decoded {len(gif)} frames, "
+                f"max |frame - gif| {gif_err} (must be 0); 2 "
+                f"pngs 1000x500; first {CLI_FRAMES} frames card vs CPU, "
+                f"pixels more than 1.0 apart: {share:.6f} (bound "
+                f"{PIXEL_SHARE}) ({info})")
+            check(share <= PIXEL_SHARE, f"render_state_trajectory card vs "
+                  f"CPU: {share}")
+            check(gif_err == 0, f"run_eval {policy_type}: the gif decodes "
+                  f"{gif_err} away from the frames")
+            check(all(np.isfinite(f).all() for f in frames), "frames")
+    finally:
+        V.render_state_trajectory = render
+    return pickle
+
+
+def visualize_phase(dev, info, keep, pickle):
+    """9b: one capped `visualize` episode of the pickle's policy."""
+    from mj_envs_torch import visualize as V
+    out = os.path.join(keep, "vis")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    V.main(["--env_name", "hammer-v0", "--policy", pickle, "--episodes",
+            "1", "--seed", "0", "--out", out, "--device", dev.type,
+            "--max_steps", str(CLI_STEPS)])
+    secs = time.perf_counter() - t0
+    gif = _decode_gif(os.path.join(out, "visualise_hammer-v0_dapg_0.gif"))
+    png = _decode_png(os.path.join(out, "rewards_hammer-v0.png"))
+    steps = len(gif) - 1
+    log(f"[9b] visualize hammer-v0 (the pickle's DAPG policy, 1 env, "
+        f"128x128 a step); cut: episode 200 -> {CLI_STEPS} steps; {steps} "
+        f"steps in {secs:.2f} s with the set-up and files: "
+        f"{steps / secs:.2f} env-steps/s; gif {len(gif)} frames, png "
+        f"{png.shape[1]}x{png.shape[0]} ({info})")
+    check(steps == CLI_STEPS and png.std() > 0, "visualize files")
+
+
+def viewer_phase(envs, dev, info, pickle):
+    """9c: a headless viewer on the card for a few steps; its frame card
+    vs CPU on the same state and camera."""
+    from mj_envs_torch.algos import dapg as DAPG
+    from mj_envs_torch.viewer import InteractiveViewer
+
+    act = DAPG.make_policy(DAPG.load_dapg_params(pickle), device=dev)
+    v = InteractiveViewer("hammer-v0", policy=act, backend="Agg",
+                          device=dev)
+    for key in ("left", "+", "up"):
+        v.handle_key(key)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    score = v.run(episodes=1, max_steps=VIEWER_STEPS)
+    img = v.frame()
+    secs = time.perf_counter() - t0
+    c = InteractiveViewer("hammer-v0", backend="Agg", device="cpu")
+    c.state = v.state.map(lambda x: x.cpu())
+    c._model = v._model.to("cpu", torch.float32)
+    c.lookat, c.azimuth, c.elevation, c.distance = (
+        v.lookat, v.azimuth, v.elevation, v.distance)
+    share = pixel_share(torch.as_tensor(img, dtype=torch.float32),
+                        torch.as_tensor(c.frame(), dtype=torch.float32))
+    log(f"[9c] InteractiveViewer hammer-v0 (Agg, 240x320, the pickle's "
+        f"policy): {VIEWER_STEPS} steps and a frame in {secs:.2f} s "
+        f"({VIEWER_STEPS / secs:.2f} env-steps/s), score {score:.3f}; "
+        f"camera az {v.azimuth} el {v.elevation} dist {v.distance:.3f}; "
+        f"frame card vs CPU, pixels more than 1.0 apart: {share:.6f} "
+        f"(bound {PIXEL_SHARE}) ({info})")
+    check(img.shape == (240, 320, 3) and img.std() > 5.0
+          and np.isfinite(score), "viewer frame")
+    check(share <= PIXEL_SHARE, f"viewer frame card vs CPU: {share}")
+
+
+def two_shard_check(envs, dev, info):
+    """The second of two env shards on this one card, with no process
+    group: a VectorEnv holding rows [n/2, n) of the n envs, as a mesh of
+    two env shards gives its rank 1 (its reset slices the global draws;
+    each step's generator skips the first shard's chunks), against those
+    rows of the plain VectorEnv bit for bit, through a reset and
+    SHARD_STEPS random steps, the last of which truncates every env, so
+    that each takes its fresh episode from the draws after the skipped
+    ones."""
+    from mj_envs_torch.dryrun import _fields
+    from mj_envs_torch.parallel.vector import (VectorEnv, random_actions,
+                                               shard_plan)
+
+    env = envs.make("hammer-v0", device=dev)
+    n, half = DIST_ENVS, DIST_ENVS // 2
+    plain = VectorEnv(env, n, chunk_size=B_CHUNK)
+    second = VectorEnv(env, n, chunk_size=B_CHUNK)
+    second.local, second.offset = half, half
+    second.plan = shard_plan(n, B_CHUNK, half, half)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bad = []
+
+    def differ(stage, a, b):
+        bad.extend((stage, f, (x.double() - y[half:].double()).abs().max()
+                    .item()) for (f, x), (_, y) in zip(_fields(a), _fields(b))
+                   if not torch.equal(x, y[half:]))
+
+    last = lambda st: st.replace(step_count=torch.full_like(
+        st.step_count, env.MAX_EPISODE_STEPS - 1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, s = plain.reset(seed=0), second.reset(seed=0)
+    differ("reset", s, p)
+    for t in range(SHARD_STEPS):
+        if t == SHARD_STEPS - 1:
+            p, s = last(p), last(s)
+        a = random_actions(gen, n, env.nu, env.device)
+        p, s = plain.step(p, a), second.step(s, a[half:])
+        differ(f"step {t + 1}", s, p)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    skipped = sum(j - i for i, j, mine in second.plan if not mine)
+    log(f"[9d] two env shards on one card, no group: rows [{half}, {n}) of "
+        f"{n} hammer-v0 envs (chunk {B_CHUNK}; {skipped} rows' reset draws "
+        f"skipped a step) vs the plain VectorEnv, a reset and {SHARD_STEPS} "
+        f"step(s), the last resetting every env ({bool(p.done.all())}), both "
+        f"in {secs:.2f} s; every field bit for bit: {not bad} {bad} "
+        f"({info})")
+    check(bool(p.done.all()) and skipped == half, "the two-shard check "
+          "reset no env or skipped no draws")
+    check(not bad, f"the second env shard differs from the plain rows: "
+          f"{bad}")
+
+
+def distributed_phase(envs, dev, info):
+    """9d: the second of two env shards against the plain rows on one
+    card (`two_shard_check`); a one-rank NCCL group from torchrun's
+    variables; the sharded VectorEnv against the plain one bit for bit;
+    `dryrun_multichip(1)`; the group torn down and the variables
+    restored."""
+    import torch.distributed as dist
+
+    from mj_envs_torch.dryrun import dryrun_multichip, vector_check
+    from mj_envs_torch.parallel import distributed as D
+
+    two_shard_check(envs, dev, info)
+    names = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+             "LOCAL_RANK")
+    before = {k: os.environ.get(k) for k in names}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(D.free_port()),
+                      WORLD_SIZE="1", RANK="0", LOCAL_RANK="0")
+    try:
+        D.initialize(device=dev)
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.is_initialized() and dist.get_backend() == backend,
+              f"no {backend} group")
+        bad, rate, plain_rate, _ = vector_check(DIST_ENVS, DIST_STEPS,
+                                                B_CHUNK, device=dev)
+        log(f"[9d] one {backend} rank (torchrun's variables, initialize()): "
+            f"hammer-v0 VectorEnv {DIST_ENVS} envs, chunk {B_CHUNK}, "
+            f"{DIST_STEPS} steps: sharded (mesh (env 1, model 1)) "
+            f"{rate:.1f} env-steps/s, plain {plain_rate:.1f}; every field "
+            f"bit for bit: {not bad} {bad} ({info})")
+        check(not bad, f"sharded VectorEnv differs from the plain one: {bad}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = dryrun_multichip(1, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"  dryrun_multichip(1): 2 envs, n_steps 2, hidden (256, 256), "
+            f"one PPO iteration in {secs:.2f} s ({info})")
+        check(all(np.isfinite(v) for v in metrics.values()),
+              f"dryrun metrics {metrics}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(not dist.is_initialized(), "the process group outlived phase 9")
+
+
+def cli_phase(TK, envs, dev, info, keep):
+    """Phase 9: eval, visualize, the viewer and the distributed runtime on
+    the card, each driven with the launch counts at 0 and read after it;
+    each must launch K1-K6.  Returns the launches of 9a-9d together."""
+    total = dict.fromkeys(TK.KERNELS, 0)
+
+    def counted(name, fn, *args):
+        TK.reset_launches()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches = dict(TK.launches)
+        log(f"  launches of phase {name}: {json.dumps(launches)}")
+        for k in MAIN_KERNELS:
+            check(launches[k] > 0, f"kernel {k} was not launched by phase "
+                  f"{name}")
+        for k, n in launches.items():
+            total[k] += n
+        return out
+
+    pickle = counted("9a", eval_phase, envs, dev, info, keep)
+    counted("9b", visualize_phase, dev, info, keep, pickle)
+    counted("9c", viewer_phase, envs, dev, info, pickle)
+    counted("9d", distributed_phase, envs, dev, info)
+    log(f"  launches of phase 9a-9d: {json.dumps(total)}")
+    return total
+
+
 def write_mjrl_pickle(path, seed, sizes=(46, 32, 32, 26)):
     """A synthetic pickle shaped as the reference's DAPG policies: an mjrl
     `gaussian_mlp.MLP` holding an `fc_network.FCNetwork` (a tanh MLP of
@@ -2196,12 +2498,18 @@ def main():
             total[name] += n
     log(json.dumps({"env_steps_per_s": rates, "gpu": info}))
 
-    for phase in (trainer_phase, learners_phase, pixel_phase):
-        for name, n in phase(TK, envs, dev, info).items():
+    import tempfile
+    with tempfile.TemporaryDirectory() as keep:
+        runs = [trainer_phase(TK, envs, dev, info, keep),
+                learners_phase(TK, envs, dev, info),
+                pixel_phase(TK, envs, dev, info),
+                cli_phase(TK, envs, dev, info, keep)]
+    for launches in runs:
+        for name, n in launches.items():
             total[name] += n
-    log(f"[8] launches: main path (phase 5), PPO trainer (phase 6), "
-        f"learners (phase 7) and the pixel path (phase 8a-8c) together: "
-        f"{json.dumps(total)}")
+    log(f"[9] launches: main path (phase 5), PPO trainer (phase 6), "
+        f"learners (phase 7), the pixel path (phase 8a-8c) and the CLIs and "
+        f"distributed runtime (phase 9a-9d) together: {json.dumps(total)}")
     for e in entries:
         e["launches"] = total[e["name"]]
 

@@ -15,6 +15,15 @@ come from `TrainState.generator`, the auto-resets from
 (T, B, nu) and `perms` (n_epochs, T*B) in their place, so a test can
 feed the JAX package's draws.
 
+Over a mesh (`make_ppo(..., mesh=...)`, the semantics the JAX dry run
+gets from XLA with replicated params and a global batch): each rank rolls
+out its own rows of the env batch (`parallel/vector.py`), its action
+noise the rows of the global draw, so that its draws are the
+single-process ones; GAE runs on its rows; the trajectory, advantages
+and returns are gathered over the mesh's "env" axis in row order, and
+every rank runs the same update on the global batch with the same
+generator, so the params stay identical with no gradient all-reduce.
+
 The optimizer is the JAX package's `optax.chain(clip_by_global_norm,
 adam)`: the clip is written out (optax scales by max_norm / g_norm only
 when g_norm >= max_norm, where `clip_grad_norm_` always multiplies by
@@ -31,7 +40,9 @@ import torch
 
 from . import networks as N
 from ..envs.base import AdroitEnv, EnvState
-from ..parallel.vector import _chunked
+from ..parallel.distributed import (all_gather_rows, all_reduce_env,
+                                     process_local_batch)
+from ..parallel.vector import shard_plan, step_rows
 
 
 class PPOConfig(NamedTuple):
@@ -94,33 +105,55 @@ def check_device(env: AdroitEnv, device) -> torch.device:
 
 
 def make_optimizer(module: N.ActorCritic, cfg: PPOConfig):
+    """Adam over the module's params; not the multi-tensor (foreach)
+    Adam when some of them are DTensors (`dryrun.py`'s tensor-parallel
+    layers), since it cannot mix them with plain tensors."""
+    sharded = any(_is_dtensor(p) for p in module.parameters())
     return torch.optim.Adam(module.parameters(), lr=cfg.lr,
-                            betas=(0.9, 0.999), eps=1e-8)
+                            betas=(0.9, 0.999), eps=1e-8,
+                            foreach=False if sharded else None)
 
 
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
     """optax.clip_by_global_norm on the grads of `params`, in place:
     g / g_norm * max_norm when g_norm >= max_norm, else unchanged.
-    Returns g_norm."""
+    Returns g_norm.  A sharded (DTensor) grad counts with its whole
+    tensor and is scaled shard by shard."""
     grads = [p.grad for p in params if p.grad is not None]
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in map(_whole, grads)))
     keep = g_norm < max_norm
-    for g in grads:
+    for g in map(_shard, grads):
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
     return g_norm
 
 
+def _is_dtensor(t: torch.Tensor) -> bool:
+    return hasattr(t, "full_tensor")
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if _is_dtensor(t) else t
+
+
+def _shard(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if _is_dtensor(t) else t
+
+
 def make_ppo(env: AdroitEnv, num_envs: int, cfg: PPOConfig = PPOConfig(),
-             device="cuda", debug_nans: bool = False):
+             device="cuda", debug_nans: bool = False, mesh=None):
     """Build (init_fn, train_iter_fn, act_fn) for `env` on `device` (the
     card unless the caller asks for the CPU; the env must be on it).
     With `debug_nans` a rollout step raises FloatingPointError where the
-    quarantine would restart a non-finite env.
+    quarantine would restart a non-finite env.  With `mesh`
+    (`parallel/distributed.make_mesh`) `num_envs` is the global batch
+    and the env states are this rank's rows of it
+    (`VectorEnv(env, num_envs, mesh)`; module docstring).
 
     init_fn(seed) -> TrainState.  train_iter_fn(train_state, env_state,
     noise=None, perms=None) -> (train_state, env_state, metrics): one
     PPO iteration (rollout + GAE + update), the module and optimizer
-    updated in place.  act_fn is `act`."""
+    updated in place; `noise` is the global (T, num_envs, nu) draw.
+    act_fn is `act`."""
     dev = check_device(env, device)
 
     def init_fn(seed: int) -> TrainState:
@@ -133,16 +166,18 @@ def make_ppo(env: AdroitEnv, num_envs: int, cfg: PPOConfig = PPOConfig(),
                           reset_generator=env.generator(seed + 1))
 
     return init_fn, _make_train_iter(
-        cfg, dev, make_rollout(env, cfg, debug_nans), lambda es: es.obs,
-        lambda es: es), act
+        cfg, dev, make_rollout(env, cfg, debug_nans, mesh, num_envs),
+        lambda es: es.obs, lambda es: es, mesh), act
 
 
-def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of):
+def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of,
+                     mesh=None):
     """train_iter_fn(train_state, state, noise=None, perms=None,
     timings=None) -> (train_state, state, metrics): rollout, GAE from
-    the value of obs_of(last state), the update.  `timings`, when given,
-    receives the ms of the rollout, GAE and update (synchronizing the
-    card between them) and whatever parts of the rollout
+    the value of obs_of(last state), the update (on the trajectory
+    gathered over the mesh's env axis, with a mesh).  `timings`, when
+    given, receives the ms of the rollout, GAE and update (synchronizing
+    the card between them) and whatever parts of the rollout
     rollout(train_state, state, noise, timings) times itself."""
     update = _make_update(cfg)
 
@@ -155,12 +190,19 @@ def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of):
         with torch.no_grad():
             last_value = ts.module(obs_of(state))[2]
         advs, rets = _gae(cfg, traj, last_value)
+        nan_resets = env_state_of(state).nan_resets.sum()
+        if mesh is not None:
+            traj = Transition(*(all_gather_rows(mesh, x, dim=1)
+                                for x in traj))
+            advs, rets = (all_gather_rows(mesh, x, dim=1)
+                          for x in (advs, rets))
+            nan_resets = all_reduce_env(mesh, nan_resets)
         if clock:
             timings["gae_ms"] = clock.lap()
         metrics = update(ts, traj, advs, rets, perms)
         metrics["mean_reward"] = traj.reward.mean()
         metrics["mean_episode_done"] = traj.done.to(traj.reward.dtype).mean()
-        metrics["nan_resets"] = env_state_of(state).nan_resets.sum()
+        metrics["nan_resets"] = nan_resets
         if clock:
             timings["update_ms"] = clock.lap()
         return ts, state, metrics
@@ -176,16 +218,18 @@ def act(module, obs, generator, noise=None):
     return action, N.gaussian_log_prob(mean, log_std, action), value
 
 
-def make_rollout(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool = False):
+def make_rollout(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool = False,
+                 mesh=None, num_envs: Optional[int] = None):
     """rollout(train_state, env_state, noise=None, timings=None) ->
     (env_state, trajectory): `cfg.n_steps` auto-reset steps
     (`ppo.py:86-106`).  The sampled action, unclipped, and its log-prob
     go into the trajectory; the env gets it clipped to [-1, 1].  The
-    rollout times no parts of its own (`timings` is left as it is)."""
+    rollout times no parts of its own (`timings` is left as it is).
+    With `mesh`, the rollout of this rank's rows of `num_envs`."""
     loop = _rollout_loop(
         env, cfg, debug_nans, observe=lambda merged: merged.obs,
         finishing_obs=lambda raw, merged: merged.final_obs,
-        stored=lambda obs: obs)
+        stored=lambda obs: obs, mesh=mesh, num_envs=num_envs)
 
     def rollout(ts: TrainState, env_state: EnvState, noise=None,
                 timings: Optional[Dict] = None):
@@ -196,7 +240,8 @@ def make_rollout(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool = False):
 
 
 def _rollout_loop(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool,
-                  observe, finishing_obs, stored):
+                  observe, finishing_obs, stored, mesh=None,
+                  num_envs: Optional[int] = None):
     """The rollout of both learners: loop(train_state, env_state, obs,
     noise=None, timings=None) -> (env_state, obs, trajectory).  Each step
     acts on `obs`, steps the envs in chunks of `cfg.step_chunk`, and
@@ -204,8 +249,12 @@ def _rollout_loop(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool,
     truncation's bootstrap value is that of finishing_obs(raw, merged),
     computed only when some env truncated.  The trajectory holds
     stored(obs).  `timings`, when given, receives the ms of the policy,
-    the physics and the observation (`render_ms`)."""
+    the physics and the observation (`render_ms`).
 
+    The env state holds this rank's rows of the global batch: all of it
+    without a mesh, its shard's rows of `num_envs` with one.  Each step's
+    noise is the global (batch, nu) draw (or noise[t]) sliced to them,
+    and the chunks step as `VectorEnv` steps them."""
     def loop(ts: TrainState, es: EnvState, obs, noise=None,
              timings: Optional[Dict] = None):
         parts = dict(physics_ms=0.0, render_ms=0.0, policy_ms=0.0)
@@ -215,16 +264,23 @@ def _rollout_loop(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool,
             if clock:
                 parts[part] += clock.lap()
 
+        n, k, lo = es.batch, es.batch, 0     # global batch, rows, offset
+        if mesh is not None:
+            n = num_envs
+            k, lo = process_local_batch(mesh, num_envs)
+        rows, plan = slice(lo, lo + k), shard_plan(n, cfg.step_chunk, k, lo)
+        dtype = next(ts.module.parameters()).dtype
         out = []
         with torch.no_grad():
             for t in range(cfg.n_steps):
-                action, logp, value = act(ts.module, obs, ts.generator,
-                                          None if noise is None else noise[t])
+                eps = (noise[t] if noise is not None else torch.randn(
+                    (n, env.nu), generator=ts.generator, device=env.device,
+                    dtype=dtype))[rows]
+                action, logp, value = act(ts.module, obs, ts.generator, eps)
                 lap("policy_ms")
-                merged, raw = _chunked(
-                    env._step_auto_reset_pair, es,
-                    torch.clamp(action, -1.0, 1.0), cfg.step_chunk,
-                    ts.reset_generator)
+                merged, raw = step_rows(
+                    env, env._step_auto_reset_pair, es,
+                    torch.clamp(action, -1.0, 1.0), plan, ts.reset_generator)
                 if debug_nans:
                     _raise_on_quarantine(t, es, merged)
                 lap("physics_ms")

@@ -211,7 +211,18 @@ class AdroitEnv:
     def reset(self, num_envs: int, generator: torch.Generator) -> EnvState:
         """Fresh episodes: qpos0/qvel0, task randomization, light forward
         pass (kinematic caches + jointpos/actuatorfrc sensors)."""
-        var = self._reset_var(self.base_var(num_envs), generator)
+        return self.reset_from_var(
+            self._reset_var(self.base_var(num_envs), generator))
+
+    def skip_reset_draws(self, num_envs: int,
+                         generator: torch.Generator) -> None:
+        """Advance `generator` past the draws of reset(num_envs) without
+        resetting (a rank skipping another rank's rows)."""
+        self._reset_var(self.base_var(num_envs), generator)
+
+    def reset_from_var(self, var: ModelVar) -> EnvState:
+        """Fresh episodes of the envs whose randomized fields are `var`."""
+        num_envs = next(t for _, t in var.items()).shape[0]
         model = _apply_var(self.model, var)
         d = pipeline.forward_light(model, make_data(model, num_envs,
                                                     self.dtype))

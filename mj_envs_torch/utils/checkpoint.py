@@ -75,6 +75,15 @@ def restore(path: str, target):
                     target)
 
 
+def restore_module(path: str, module, field: str = "module"):
+    """Load only the `field` module of the checkpoint at `path` into
+    `module` (an evaluation's policy; the JAX package restores the
+    params alone) and return it."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    module.load_state_dict(saved[field])
+    return module
+
+
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.pt$")
 
 

@@ -9,6 +9,14 @@ SUCCESS_STEPS goal-achieved steps) comes from the same rollout.  The
 DAPG policy goes through `dapg_policy_apply`; `make_pixel_evaluate`
 feeds a pixel policy the rendered frames, and `make_planet_evaluate`
 acts through PlaNet's belief filter and planner.
+
+`run_eval` is the reference's evaluation protocol, and `main` its CLI:
+
+    python -m mj_envs_torch.utils.eval --config_path cfg.json \
+        [--policy_type dapg] [--episodes 5] [--variation_type pos]
+
+on the card named by the config's `device_type` ("cuda" unless the
+config says "cpu").
 """
 from __future__ import annotations
 
@@ -151,3 +159,121 @@ def load_planet_params(config, env: AdroitEnv):
     cfg = PL.cfg_from_config(config, env.nu)
     init_fn = PL.make_planet(cfg, device=env.device, dtype=env.dtype)[0]
     return CKPT.restore(config.models_path, init_fn(0)).params
+
+
+def run_eval(config_path, policy_type="default", variation_type=None,
+             episodes=5, out=None, episode_length=None, dapg_root=None):
+    """The evaluation protocol (reference `mj_envs_vision/utils/
+    eval.py:29-66`): episode `ep` evaluates 10 fresh envs with seed
+    `config.seed + ep`, the worst trajectory of each episode (the lowest
+    total reward, which the reference's "select worst" comment at
+    `eval.py:60` intends) is rendered to a gif, and the reward and
+    success plots are written at the end.  Runs on the config's
+    `device_type`.
+
+    policy_type: default / dapg (the pretrained DAPG policy of the task,
+    from `dapg_root`, `algos/dapg.DEFAULT_ROOT` unless given), ppo (a
+    checkpoint of the port at `config.models_path`, the CNN policy on
+    pixels when the config's `model_type` is "cnn"), planet.
+    `episode_length` cuts the episodes (default: the task's length,
+    PlaNet's max_episode_length // action_repeat).  -> (out_path,
+    model_name)."""
+    import os
+
+    from .. import envs
+    from .. import visualize as V
+    from . import helpers as H
+    from .config import load_config
+
+    config = load_config(config_path, policy_type)
+    config.max_episodes = episodes
+    config.variation_type = variation_type
+    env = envs.make(config.env_name, variation_type=variation_type,
+                    device=config.device_type)
+    out_path = out or os.path.dirname(config.models_path) or "results"
+    os.makedirs(out_path, exist_ok=True)
+    model_name = (os.path.basename(config.models_path or "golden")
+                  .replace(".", "_") + "_var-"
+                  + (variation_type or "fixed"))
+    print(f"saving results to {out_path}")
+
+    length = episode_length or env.MAX_EPISODE_STEPS
+    task = config.env_name.replace("-v0", "")
+    model_type = getattr(config, "model_type", "mlp") or "mlp"
+    if policy_type in ("default", "dapg"):
+        from ..algos import dapg
+        act_fn, _ = dapg.load_policy(task, env.device, env.dtype,
+                                     root=dapg_root or dapg.DEFAULT_ROOT)
+        params = None
+        evaluate = make_evaluate(env, dapg_policy_apply(act_fn), length)
+    elif policy_type == "ppo":
+        # The state MLP (64, 64), or the reference's ActorCriticCnnPolicy
+        # on pixels (baselines.py:120-134).
+        from ..algos import networks as N
+        from . import checkpoint as CKPT
+        if model_type == "cnn":
+            module = N.CnnActorCritic(env.nu, device=env.device,
+                                      dtype=env.dtype)
+        else:
+            module = N.ActorCritic(env.OBS_DIM, env.nu, (64, 64),
+                                   device=env.device, dtype=env.dtype)
+        params = CKPT.restore_module(config.models_path, module)
+
+        def apply(module, obs, generator):
+            return torch.clamp(module(obs)[0], -1.0, 1.0)
+
+        if model_type == "cnn":
+            from ..envs.pixels import PixelObservationEnv
+            evaluate = make_pixel_evaluate(PixelObservationEnv(env), apply,
+                                           length)
+        else:
+            evaluate = make_evaluate(env, apply, length)
+    elif policy_type == "planet":
+        # The belief-filtered act path (reference eval.py:36-44).
+        params = load_planet_params(config, env)
+        evaluate = make_planet_evaluate(
+            env, config, episode_length
+            or config.max_episode_length // config.action_repeat)
+    else:
+        raise SystemExit(f"unsupported policy_type {policy_type}")
+    total_rewards, successes = [], []
+    for ep in range(episodes):
+        res = evaluate(params, config.seed + ep, count=10)  # reseed seed+ep
+        total_rewards.append((ep, res.total_rewards))
+        successes.append((ep, res.success_any.astype(int)))
+        worst = int(np.argmin(res.total_rewards))
+        frames = V.render_state_trajectory(env, res.qpos[worst])
+        H.visualise_trajectory(ep, frames, out_path, prefix=model_name)
+        print(f"ep {ep}: reward {res.total_rewards.mean():.1f} "
+              f"success {res.success_rate:.0f}% "
+              f"(worst traj #{worst}: {res.total_rewards[worst]:.1f})")
+
+    H.save_rewards_plot(
+        total_rewards,
+        os.path.join(out_path, f"{model_name}_eval_rewards.png"),
+        "total rewards")
+    H.save_rewards_plot(
+        successes,
+        os.path.join(out_path, f"{model_name}_eval_success.png"),
+        "success rate")
+    return out_path, model_name
+
+
+def main(argv=None):
+    """The CLI over `run_eval` (the JAX package's options)."""
+    import argparse
+    ap = argparse.ArgumentParser(description="evaluate a policy "
+                                 "(mj_envs_torch.utils.eval.run_eval)")
+    ap.add_argument("--config_path", type=str, required=True)
+    ap.add_argument("--policy_type", type=str, default="default",
+                    help="{default, dapg, ppo, planet}")
+    ap.add_argument("--variation_type", type=str, default=None)
+    ap.add_argument("--episodes", type=int, default=5)
+    ap.add_argument("--out", type=str, default=None)
+    args = ap.parse_args(argv)
+    run_eval(args.config_path, args.policy_type, args.variation_type,
+             args.episodes, args.out)
+
+
+if __name__ == "__main__":
+    main()

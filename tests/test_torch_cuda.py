@@ -387,3 +387,35 @@ def test_cuda_fk(cuda, task):
         assert a.shape == b.shape, f
         scale = max(1.0, float(b.abs().max()))
         assert float((a - b).abs().max()) <= 2e-5 * scale, f
+
+
+@pytest.mark.cuda
+def test_cuda_render_matches_cpu(cuda):
+    """The ray-caster on the card against the CPU on one state of 4
+    hammer envs (a reset and two random steps on the CPU, the poses and
+    per-env fields moved to the card), 128x128 from the pixel env's
+    camera: no pixel more than 1.0 apart (the renderer's float64 hits on
+    float32 inputs give both devices the same image; `chip_smoke.py`
+    phase 8a holds 256 envs to a share of 0.005)."""
+    from mj_envs_torch import envs
+    from mj_envs_torch.envs.base import _apply_var
+    from mj_envs_torch.envs.pixels import PixelObservationEnv
+    from mj_envs_torch.parallel.vector import random_actions
+    from mj_envs_torch.render import raster
+    env_c = envs.make("hammer-v0", device="cpu")
+    gen = env_c.generator(3)
+    st = env_c.reset(4, gen)
+    for _ in range(2):
+        st = env_c.step_auto_reset(
+            st, random_actions(gen, 4, env_c.nu, "cpu"), gen)
+    cam = PixelObservationEnv(env_c).camera
+    img_c = raster.render(_apply_var(env_c.model, st.var),
+                          st.data.geom_xpos, st.data.geom_xmat, cam)
+    env_k = envs.make("hammer-v0", device=cuda)
+    st_k = st.map(lambda x: x.to(cuda))
+    img_k = raster.render(_apply_var(env_k.model, st_k.var),
+                          st_k.data.geom_xpos, st_k.data.geom_xmat,
+                          cam.to(cuda))
+    assert img_k.shape == (4, 128, 128, 3) and float(img_c.std()) > 5.0
+    far = (img_k.cpu() - img_c).abs().amax(-1) > 1.0
+    assert int(far.sum()) == 0, float(far.double().mean())

@@ -63,7 +63,9 @@ def test_import_works_without_gpu_or_nvcc():
         "mj_envs_torch.parallel.vector, mj_envs_torch.physics.pipeline, "
         "mj_envs_torch.algos.npg, mj_envs_torch.algos.sac, "
         "mj_envs_torch.algos.dapg, mj_envs_torch.utils.train, "
-        "mj_envs_torch.run\n"
+        "mj_envs_torch.run, mj_envs_torch.utils.helpers, "
+        "mj_envs_torch.visualize, mj_envs_torch.viewer, "
+        "mj_envs_torch.parallel.distributed, mj_envs_torch.dryrun\n"
         "assert not torch.cuda.is_available()\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
