@@ -1,0 +1,7 @@
+"""device.launches_per_substep.rollout: device operations in the profiled
+slice (one chunk's env step) over its substeps."""
+from benchmark.lib import readers as R
+
+PROFILE = True
+COUNTS = {"pipeline.step": R.PIPELINE_STEP}
+read = R.launches_per_substep
