@@ -38,9 +38,10 @@ from torch.func import functional_call, jvp, vjp
 
 from . import networks as N
 from . import ppo as PPO
-from .ppo import _Clock, check_device
+from .ppo import check_device
 from ..envs.base import AdroitEnv, EnvState
 from ..parallel.vector import _chunked
+from ..trace import Clock
 
 STEP_CHUNK = 512     # envs per chunk of the batched step (`npg.py:107`)
 
@@ -237,7 +238,7 @@ def make_npg(env: AdroitEnv, num_envs: int, cfg: NPGConfig = NPGConfig(),
     def train_iter_fn(state: NPGState, env_state: EnvState, noise=None,
                       timings: Optional[Dict] = None,
                       extras: Optional[Dict] = None):
-        clock = _Clock(dev) if timings is not None else None
+        clock = Clock(dev) if timings is not None else None
         env_state, traj = rollout(state, env_state, noise)
         if clock:
             timings["rollout_ms"] = clock.lap()
@@ -251,7 +252,7 @@ def make_npg(env: AdroitEnv, num_envs: int, cfg: NPGConfig = NPGConfig(),
 
 def update(cfg: NPGConfig, module: NPGPolicy, traj: Transition,
            env_state: EnvState, demos: Optional[Dict] = None,
-           iteration: int = 0, clock: Optional[_Clock] = None,
+           iteration: int = 0, clock: Optional[Clock] = None,
            timings: Optional[Dict] = None,
            extras: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """The update of one iteration from its (T, B) trajectory and the env

@@ -33,7 +33,6 @@ eps 1e-8), which computes optax's update in exact arithmetic.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,6 +42,7 @@ from ..envs.base import AdroitEnv, EnvState
 from ..parallel.distributed import (all_gather_rows, all_reduce_env,
                                      process_local_batch)
 from ..parallel.vector import shard_plan, step_rows
+from ..trace import Clock
 
 
 class PPOConfig(NamedTuple):
@@ -183,7 +183,7 @@ def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of,
 
     def train_iter_fn(ts: TrainState, state, noise=None, perms=None,
                       timings: Optional[Dict] = None):
-        clock = _Clock(dev) if timings is not None else None
+        clock = Clock(dev) if timings is not None else None
         state, traj = rollout(ts, state, noise, timings)
         if clock:
             timings["rollout_ms"] = clock.lap()
@@ -258,7 +258,7 @@ def _rollout_loop(env: AdroitEnv, cfg: PPOConfig, debug_nans: bool,
     def loop(ts: TrainState, es: EnvState, obs, noise=None,
              timings: Optional[Dict] = None):
         parts = dict(physics_ms=0.0, render_ms=0.0, policy_ms=0.0)
-        clock = _Clock(env.device) if timings is not None else None
+        clock = Clock(env.device) if timings is not None else None
 
         def lap(part):
             if clock:
@@ -363,22 +363,6 @@ def _raise_on_quarantine(t, before: EnvState, after: EnvState):
         raise FloatingPointError(
             f"rollout step {t}: non-finite env state in envs "
             f"{bad.tolist()[:16]} (quarantined)")
-
-
-class _Clock:
-    def __init__(self, dev):
-        self.dev = dev
-        self._sync()
-        self.t = time.perf_counter()
-
-    def _sync(self):
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-
-    def lap(self) -> float:
-        self._sync()
-        t, self.t = self.t, time.perf_counter()
-        return (self.t - t) * 1e3
 
 
 def _gae(cfg: PPOConfig, traj: Transition, last_value: torch.Tensor):

@@ -33,9 +33,10 @@ import torch
 from torch import nn
 
 from . import networks as N
-from .ppo import _Clock, check_device
+from .ppo import check_device
 from ..envs.base import AdroitEnv, EnvState
 from ..parallel.vector import _chunked
+from ..trace import Clock
 
 STEP_CHUNK = 512     # envs per chunk of the batched step (`sac.py:94`)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -237,7 +238,7 @@ def make_sac(env: AdroitEnv, num_envs: int, cfg: SACConfig = SACConfig(),
     def train_iter_fn(st: SACState, env_state: EnvState,
                       draws: Optional[Dict[str, torch.Tensor]] = None,
                       timings: Optional[Dict] = None):
-        clock = _Clock(dev) if timings is not None else None
+        clock = Clock(dev) if timings is not None else None
         gen = st.generator
         if draws is not None:
             draws = {k: v.to(dev) for k, v in draws.items()}

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from .. import trace
 from .base import AdroitEnv, EnvState, ModelVar
 from .door import DoorEnv
 from .hammer import HammerEnv
@@ -26,13 +27,16 @@ _REGISTRY = {
 def make(env_id: str, variation_type: Optional[str] = None,
          device="cuda", **kwargs) -> AdroitEnv:
     """Build a task env on `device` (the card by default; raises without
-    one unless device='cpu' is passed)."""
+    one unless device='cpu' is passed): the MJCF's parse, the model's
+    build and its tensors on the device, the tracer's span
+    `setup.model_build`."""
     if env_id not in _REGISTRY:
         raise ValueError(
             f"Unknown env '{env_id}'; available: "
             f"{sorted(k for k in _REGISTRY if k.endswith('-v0'))}")
-    return _REGISTRY[env_id](variation_type=variation_type, device=device,
-                             **kwargs)
+    with trace.span("setup.model_build"):
+        return _REGISTRY[env_id](variation_type=variation_type,
+                                 device=device, **kwargs)
 
 
 __all__ = ["make", "AdroitEnv", "EnvState", "ModelVar", "HammerEnv",

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..mjcf import builder as MB, task_xml_path
 from ..physics import pipeline
 from ..physics.model import Data, Model, make_data
@@ -245,11 +246,13 @@ class AdroitEnv:
         ctrl = self.act_mid + a * self.act_rng
         d = state.data
         clipped = torch.zeros_like(state.done)
-        for _ in range(self.FRAME_SKIP):
-            d = pipeline.step(model, d, ctrl)
-            clipped = clipped | (d.ncon_active > self.ncmax)
-        obs = self._obs(model, d)
-        reward, done, goal = self._reward_done(model, d)
+        with trace.span("env.physics"):
+            for _ in range(self.FRAME_SKIP):
+                d = pipeline.step(model, d, ctrl)
+                clipped = clipped | (d.ncon_active > self.ncmax)
+        with trace.span("env.obs_reward"):
+            obs = self._obs(model, d)
+            reward, done, goal = self._reward_done(model, d)
         return state.replace(
             data=d, obs=obs, reward=reward.to(self.dtype), done=done,
             goal_achieved=goal, step_count=state.step_count + 1,
@@ -271,25 +274,31 @@ class AdroitEnv:
 
     def _step_auto_reset_pair(self, state: EnvState, action: torch.Tensor,
                               generator: torch.Generator):
-        """step_auto_reset that also returns the raw post-step state."""
-        st = self.step(state, action)
-        finite = (torch.isfinite(st.data.qpos).all(-1)
-                  & torch.isfinite(st.data.qvel).all(-1)
-                  & torch.isfinite(st.obs).all(-1)
-                  & torch.isfinite(st.reward))
-        trunc = st.step_count >= self.MAX_EPISODE_STEPS
-        restart = st.done | trunc | ~finite
-        fresh = self.reset(st.batch, generator)
-        new_core = fresh.map(lambda a, b: _select(restart, a, b), st)
-        merged = new_core.replace(
-            reward=torch.where(finite, st.reward, torch.zeros_like(st.reward)),
-            done=restart,
-            truncated=trunc & ~st.done & finite,
-            final_obs=st.obs,
-            goal_achieved=st.goal_achieved & finite,
-            nan_resets=state.nan_resets + (~finite).to(torch.int32),
-            contact_clips=st.contact_clips)
-        return merged, st
+        """step_auto_reset that also returns the raw post-step state (the
+        tracer's span `env.step`: the physics, obs and reward, the whole
+        chunk's reset and the merge)."""
+        with trace.span("env.step"):
+            st = self.step(state, action)
+            with trace.span("env.reset"):
+                fresh = self.reset(st.batch, generator)
+            with trace.span("env.merge"):
+                finite = (torch.isfinite(st.data.qpos).all(-1)
+                          & torch.isfinite(st.data.qvel).all(-1)
+                          & torch.isfinite(st.obs).all(-1)
+                          & torch.isfinite(st.reward))
+                trunc = st.step_count >= self.MAX_EPISODE_STEPS
+                restart = st.done | trunc | ~finite
+                new_core = fresh.map(lambda a, b: _select(restart, a, b), st)
+                merged = new_core.replace(
+                    reward=torch.where(finite, st.reward,
+                                       torch.zeros_like(st.reward)),
+                    done=restart,
+                    truncated=trunc & ~st.done & finite,
+                    final_obs=st.obs,
+                    goal_achieved=st.goal_achieved & finite,
+                    nan_resets=state.nan_resets + (~finite).to(torch.int32),
+                    contact_clips=st.contact_clips)
+            return merged, st
 
     # -- parity/debug API (get_env_state/set_env_state analogue) --------------
 

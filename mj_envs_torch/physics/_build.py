@@ -18,6 +18,8 @@ import subprocess
 import tempfile
 import time
 
+from .. import trace
+
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(PKG, "_build")
@@ -119,8 +121,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use and loaded once."""
+    """The kernel library, built on first use and loaded once (the
+    tracer's span `setup.kernel_library`)."""
     global _lib
     if _lib is None:
-        _lib = _bind(ctypes.CDLL(library_path()))
+        with trace.span("setup.kernel_library"):
+            _lib = _bind(ctypes.CDLL(library_path()))
     return _lib

@@ -9,6 +9,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ... import trace
 from ..model import (Model, GEOM_PLANE, GEOM_SPHERE, GEOM_CAPSULE,
                      GEOM_CYLINDER, GEOM_BOX)
 from ..kinematics import Kin
@@ -35,6 +36,12 @@ _FNS = {
 }
 # Contact slots a pair contributes to the global buffer.
 _SLOTS = {key: mc for key, (fn, mc) in _FNS.items()}
+_TYPE_NAMES = {GEOM_PLANE: "plane", GEOM_SPHERE: "sphere",
+               GEOM_CAPSULE: "capsule", GEOM_CYLINDER: "cylinder",
+               GEOM_BOX: "box"}
+# The tracer's span of each pair type's narrowphase, e.g. collide.capsule_box.
+_SPANS = {(t1, t2): f"collide.{_TYPE_NAMES[t1]}_{_TYPE_NAMES[t2]}"
+          for t1, t2 in _FNS}
 
 
 class Contact(NamedTuple):
@@ -94,23 +101,25 @@ def narrowphase_all(m: Model, kin: Kin) -> Contact:
         m.geom_size.expand(B, -1, -1)
     chunks_d, chunks_p, chunks_n = [], [], []
     for key, pids in _groups(s):
-        fn, _ = _FNS[key]
-        P = len(pids)
-        pids_np = np.asarray(pids)
-        g1 = torch.as_tensor(s.pair_geom1[pids_np], dtype=torch.long,
-                             device=dev)
-        g2 = torch.as_tensor(s.pair_geom2[pids_np], dtype=torch.long,
-                             device=dev)
-        flat = lambda x: x.reshape((B * P,) + x.shape[2:])
-        marg = m.pair_margin[torch.as_tensor(pids_np, device=dev)]
-        d, p, n = fn(flat(kin.geom_xpos[:, g1]), flat(kin.geom_xmat[:, g1]),
-                     flat(size[:, g1]), flat(kin.geom_xpos[:, g2]),
-                     flat(kin.geom_xmat[:, g2]), flat(size[:, g2]),
-                     marg.expand(B, P).reshape(B * P))
-        Cn = d.shape[-1]
-        chunks_d.append(d.reshape(B, P * Cn).to(dtype))
-        chunks_p.append(p.reshape(B, P * Cn, 3).to(dtype))
-        chunks_n.append(n.reshape(B, P * Cn, 3).to(dtype))
+        with trace.span(_SPANS[key]):
+            fn, _ = _FNS[key]
+            P = len(pids)
+            pids_np = np.asarray(pids)
+            g1 = torch.as_tensor(s.pair_geom1[pids_np], dtype=torch.long,
+                                 device=dev)
+            g2 = torch.as_tensor(s.pair_geom2[pids_np], dtype=torch.long,
+                                 device=dev)
+            flat = lambda x: x.reshape((B * P,) + x.shape[2:])
+            marg = m.pair_margin[torch.as_tensor(pids_np, device=dev)]
+            d, p, n = fn(flat(kin.geom_xpos[:, g1]),
+                         flat(kin.geom_xmat[:, g1]), flat(size[:, g1]),
+                         flat(kin.geom_xpos[:, g2]),
+                         flat(kin.geom_xmat[:, g2]), flat(size[:, g2]),
+                         marg.expand(B, P).reshape(B * P))
+            Cn = d.shape[-1]
+            chunks_d.append(d.reshape(B, P * Cn).to(dtype))
+            chunks_p.append(p.reshape(B, P * Cn, 3).to(dtype))
+            chunks_n.append(n.reshape(B, P * Cn, 3).to(dtype))
     dist = torch.cat(chunks_d, dim=1)
     pos = torch.cat(chunks_p, dim=1)
     nrm = torch.cat(chunks_n, dim=1)
@@ -164,4 +173,5 @@ def compact(m: Model, con: Contact, ncmax: int) -> CompactContacts:
 def collide(m: Model, kin: Kin, ncmax: int):
     """Narrowphase + compaction: (full Contact, CompactContacts)."""
     con = narrowphase_all(m, kin)
-    return con, compact(m, con, ncmax)
+    with trace.span("collide.compact"):
+        return con, compact(m, con, ncmax)

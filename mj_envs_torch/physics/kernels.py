@@ -36,7 +36,8 @@ tensor takes the plain version on any device, the card included, and
 launches no kernel: the JAX package dispatches its kernels for float32
 only, and its float64 oracle-parity path never reaches one.  Any other
 dtype on the card (float16, bfloat16) raises.  Each launch adds one to
-`launches[name]`.
+`launches[name]`; `launches` is the tracer's registry
+(`mj_envs_torch.trace.counters`), whose other keys hold a dot.
 
 The factor layout is the JAX package's on every backend: fac[b, k, :] is
 column k of L (so fac is L^T, zero below the diagonal).
@@ -48,16 +49,21 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import trace
+
 KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
            "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat")
-launches: Dict[str, int] = {k: 0 for k in KERNELS}
+launches: Dict[str, int] = trace.counters
+launches.update((k, 0) for k in KERNELS)
 CHOL_SOLVE_MAX_NV = 64   # chol.cu's kMaxSolveNv: two columns per lane
 CHOL_SUBST_MAX_NV = 64   # chol.cu's kMaxSubstNv: the largest nv bucket
 NOSLIP_MAX_R = 256       # noslip.cu's kMaxR: 8 rows a lane
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    """Every count of the registry back to 0: the launches and the
+    tracer's counters beside them."""
+    for k in launches:
         launches[k] = 0
 
 

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from . import actuation as A
 from . import constraint as CN
 from . import dynamics as D
@@ -55,33 +56,41 @@ def forward_core(m: Model, qpos, qvel, ctrl, qacc_warmstart,
                  qfrc_applied) -> ForwardOut:
     s = m.spec
     f32 = qpos.dtype == torch.float32
-    kin = K.kinematics(m, qpos)
-    M = D.crb(m, kin)
-    vel = D.com_velocity(m, kin, qvel)
-    qfrc_bias = D.bias_force(m, kin, vel, qvel)
-    qfrc_passive = D.passive_force(m, qpos, qvel)
-    act = A.actuation(m, qpos, qvel, ctrl)
-    qfrc_smooth = act.qfrc_actuator + qfrc_passive + qfrc_applied - qfrc_bias
-    if f32 and s.noslip_iterations > 0:
-        # Keep the factor of M for noslip's matrix right-hand side
-        # (float64's noslip works from inv(M) instead).
-        qacc_smooth, M_fac = kernels.chol_solve_factor(M, qfrc_smooth)
-    else:
-        qacc_smooth, M_fac = kernels.chol_solve(M, qfrc_smooth), None
+    with trace.span("physics.kinematics"):
+        kin = K.kinematics(m, qpos)
+    with trace.span("physics.smooth"):
+        M = D.crb(m, kin)
+        vel = D.com_velocity(m, kin, qvel)
+        qfrc_bias = D.bias_force(m, kin, vel, qvel)
+        qfrc_passive = D.passive_force(m, qpos, qvel)
+        act = A.actuation(m, qpos, qvel, ctrl)
+        qfrc_smooth = act.qfrc_actuator + qfrc_passive + qfrc_applied \
+            - qfrc_bias
+        if f32 and s.noslip_iterations > 0:
+            # Keep the factor of M for noslip's matrix right-hand side
+            # (float64's noslip works from inv(M) instead).
+            qacc_smooth, M_fac = kernels.chol_solve_factor(M, qfrc_smooth)
+        else:
+            qacc_smooth, M_fac = kernels.chol_solve(M, qfrc_smooth), None
 
     nc = ncmax(s)
-    contact_full, contacts = C.collide(m, kin, nc)
-    rows = CN.make_rows(m, kin, qpos, qvel, contacts)
+    with trace.span("physics.collide"):
+        contact_full, contacts = C.collide(m, kin, nc)
+    with trace.span("physics.rows"):
+        rows = CN.make_rows(m, kin, qpos, qvel, contacts)
     # The f32 solver knobs, read on every call (the JAX package reads
     # them when it traces); the float64 path ignores them.
-    solve = S.newton_solve(M, qacc_smooth, rows, qacc_warmstart,
-                           iterations=s.iterations,
-                           tol_scale=S.newton_tol_scale())
+    with trace.span("physics.newton"):
+        solve = S.newton_solve(M, qacc_smooth, rows, qacc_warmstart,
+                               iterations=s.iterations,
+                               tol_scale=S.newton_tol_scale())
     if s.noslip_iterations > 0:
-        nfl = int(np.sum(s.dof_hasfrictionloss))
-        solve = S.noslip(M, rows, solve, nfl, nc, s.noslip_iterations,
-                         M_fac=M_fac, tol=S.noslip_tol())
-    sensordata = _sensors(m, kin, qpos, act, contacts, solve)
+        with trace.span("physics.noslip"):
+            nfl = int(np.sum(s.dof_hasfrictionloss))
+            solve = S.noslip(M, rows, solve, nfl, nc, s.noslip_iterations,
+                             M_fac=M_fac, tol=S.noslip_tol())
+    with trace.span("physics.sensors"):
+        sensordata = _sensors(m, kin, qpos, act, contacts, solve)
     clipped = contact_full.active.sum(-1) > nc
     return ForwardOut(kin=kin, M=M, qfrc_bias=qfrc_bias,
                       qfrc_passive=qfrc_passive, act=act,
@@ -195,14 +204,16 @@ def step(m: Model, d: Data, ctrl: torch.Tensor) -> Data:
     """mj_step: forward dynamics, then Euler with implicit joint damping:
     (M + h diag(B)) qacc' = M qacc."""
     h = float(m.spec.timestep)
-    out = forward_core(m, d.qpos, d.qvel, ctrl, d.qacc_warmstart,
-                       d.qfrc_applied)
-    qfrc_total = torch.matmul(out.M, out.qacc[..., None])[..., 0]
-    MhB = out.M + h * torch.diag(m.dof_damping)
-    qacc_imp = kernels.chol_solve(MhB, qfrc_total)
-    qvel_new = d.qvel + h * qacc_imp
-    qpos_new = d.qpos + h * qvel_new
-    d = _write_caches(m, d, out)
-    return d.replace(qpos=qpos_new, qvel=qvel_new, ctrl=ctrl,
-                     qacc=out.qacc, qacc_warmstart=out.solve.qacc,
-                     time=d.time + h)
+    with trace.span("physics.substep"):
+        out = forward_core(m, d.qpos, d.qvel, ctrl, d.qacc_warmstart,
+                           d.qfrc_applied)
+        with trace.span("physics.euler"):
+            qfrc_total = torch.matmul(out.M, out.qacc[..., None])[..., 0]
+            MhB = out.M + h * torch.diag(m.dof_damping)
+            qacc_imp = kernels.chol_solve(MhB, qfrc_total)
+            qvel_new = d.qvel + h * qacc_imp
+            qpos_new = d.qpos + h * qvel_new
+        d = _write_caches(m, d, out)
+        return d.replace(qpos=qpos_new, qvel=qvel_new, ctrl=ctrl,
+                         qacc=out.qacc, qacc_warmstart=out.solve.qacc,
+                         time=d.time + h)

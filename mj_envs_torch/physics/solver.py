@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import trace
 from . import kernels
 from .constraint import Rows, j_matvec, jt_matvec, jtwj
 
@@ -112,7 +113,10 @@ def newton_solve(M: torch.Tensor, qacc_smooth: torch.Tensor, rows: Rows,
     it = torch.zeros(B, dtype=torch.int32, device=qacc.device)
     done = torch.zeros(B, dtype=torch.bool, device=qacc.device)
     running = (it < iterations) & ~done
-    while bool(running.any()):
+    slots = env_iters = 0
+    while n_running := _loop_test(running):
+        slots += B
+        env_iters += n_running
         f, quad = _forces(rows, jar)
         dq = qacc - qacc_smooth
         Mdq = torch.matmul(M, dq[..., None])[..., 0]
@@ -157,8 +161,19 @@ def newton_solve(M: torch.Tensor, qacc_smooth: torch.Tensor, rows: Rows,
         it = torch.where(running, it + 1, it)
         done = torch.where(running, done_new, done)
         running = (it < iterations) & ~done
+    trace.count("newton.solves", B)
+    trace.count("newton.slots", slots)
+    trace.count("newton.env_iters", env_iters)
     f, _ = _forces(rows, jar)
     return SolveResult(qacc=qacc, efc_force=f, jar=jar)
+
+
+def _loop_test(running: torch.Tensor) -> int:
+    """The Newton loop's test, its one read of the device each
+    iteration: with the tracer on, how many envs still run (summed over
+    the iterations, each env's own iteration count: `newton.env_iters`),
+    else whether any does."""
+    return int(running.sum()) if trace.enabled() else bool(running.any())
 
 
 class NoslipProblem(NamedTuple):

@@ -44,6 +44,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..physics.model import (GEOM_BOX, GEOM_CAPSULE, GEOM_CYLINDER,
                              GEOM_PLANE, GEOM_SPHERE, Model)
 
@@ -350,7 +351,14 @@ def render(model: Model, geom_xpos: torch.Tensor, geom_xmat: torch.Tensor,
     poses; `model.geom_size` / `geom_rgba` may carry a leading env axis
     (per-env model fields, `envs.base._apply_var`).  `dirs` are
     `camera_rays(cam, height, width, device)`, computed here when not
-    given."""
+    given.  One chunk is the tracer's span `render.chunk`."""
+    with trace.span("render.chunk"):
+        return _render(model, geom_xpos, geom_xmat, cam, height, width,
+                       light_dir, ambient, meshes, dirs)
+
+
+def _render(model, geom_xpos, geom_xmat, cam, height, width, light_dir,
+            ambient, meshes, dirs) -> torch.Tensor:
     f32, f64 = torch.float32, torch.float64
     B = geom_xpos.shape[0]
     dev = cam.origin.device

@@ -1,4 +1,5 @@
-"""Where a hammer-v0 physics substep's time goes in the port, on the card.
+"""Where a hammer-v0 physics substep's time goes in the port, on the card,
+read from the tracer's spans (`mj_envs_torch.trace`).
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
@@ -8,13 +9,19 @@ It resets `--envs` hammer envs (one main-path chunk by default), takes
 two auto-reset steps with seeded random actions so that the states hold
 contacts, and then:
 
-1. times each stage of `pipeline.forward_core` plus the Euler update,
-   host clock around work that ends in `torch.cuda.synchronize()`
-   (mean of `--reps` substeps);
-2. traces one substep with `torch.profiler`: kernels launched, device
-   time summed over kernels, the wall time of the traced substep, and
-   the device's idle share (1 - device time / wall time), also against
-   the untraced substep of step 1;
+1. runs `--reps` real `pipeline.step` calls with the tracer on, each
+   ended by `torch.cuda.synchronize()`: per substep, each span's host
+   ms, its self ms (less its child spans) and the synchronizing CUDA
+   operations made inside it, and the wall ms to the synchronize; and
+   the lines of the port that made those synchronizing operations.  The
+   spans do not synchronize: a span's ms is what the host spends
+   issuing its stage;
+2. traces one substep with `torch.profiler`, the tracer on: device
+   operations launched, device time summed over them, the wall time of
+   the traced substep, the device's idle share (1 - device time / wall
+   time, also against the untraced substeps of step 1), and the device
+   operations and their device ms under each span (an operation goes to
+   the innermost span open when the host launched it);
 3. runs the noslip kernel on that substep's own sweep problem at the
    main path's tol (MJE_NOSLIP_TOL, default 1e-3) and at tol = 0
    (exactly 20 sweeps): sweeps each env ran before its per-env exit, and
@@ -26,76 +33,37 @@ contacts, and then:
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import os
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 
-from . import envs
+from . import envs, trace
 from .envs.base import _apply_var
 from .parallel.vector import VectorEnv, random_actions
-from .physics import actuation as A
-from .physics import constraint as CN
-from .physics import dynamics as D
 from .physics import kernels
-from .physics import kinematics as K
 from .physics import pipeline as P
 from .physics import solver as S
-from .physics.collision import driver as C
-
-
-def solve_stages(m, d, ctrl, tick):
-    """`forward_core`'s stages up to the Newton solve, as it runs them;
-    `tick(name)` closes each stage.  Returns (kin, act, M, M_fac, cc,
-    rows, solve) for the stages after it."""
-    s = m.spec
-    kin = K.kinematics(m, d.qpos)
-    tick("kinematics")
-    M = D.crb(m, kin)
-    vel = D.com_velocity(m, kin, d.qvel)
-    act = A.actuation(m, d.qpos, d.qvel, ctrl)
-    frc = act.qfrc_actuator + D.passive_force(m, d.qpos, d.qvel) \
-        + d.qfrc_applied - D.bias_force(m, kin, vel, d.qvel)
-    tick("smooth dynamics")
-    qacc_smooth, M_fac = kernels.chol_solve_factor(M, frc)
-    tick("chol_solve_factor")
-    _, cc = C.collide(m, kin, P.ncmax(s))
-    tick("collide")
-    rows = CN.make_rows(m, kin, d.qpos, d.qvel, cc)
-    tick("make_rows")
-    solve = S.newton_solve(M, qacc_smooth, rows, d.qacc_warmstart,
-                           iterations=s.iterations,
-                           tol_scale=S.newton_tol_scale())
-    tick("newton_solve")
-    return kin, act, M, M_fac, cc, rows, solve
-
-
-def substep_stages(m, d, ctrl, tick):
-    """One `pipeline.step`, stage by stage, as `forward_core` runs it;
-    `tick(name)` closes each stage."""
-    s = m.spec
-    kin, act, M, M_fac, cc, rows, solve = solve_stages(m, d, ctrl, tick)
-    nfl = int(np.sum(s.dof_hasfrictionloss))
-    solve = S.noslip(M, rows, solve, nfl, P.ncmax(s), s.noslip_iterations,
-                     M_fac=M_fac, tol=S.noslip_tol())
-    tick("noslip")
-    P._sensors(m, kin, d.qpos, act, cc, solve)
-    tick("sensors")
-    h = float(s.timestep)
-    qfrc = torch.matmul(M, solve.qacc[..., None])[..., 0]
-    kernels.chol_solve(M + h * torch.diag(m.dof_damping), qfrc)
-    tick("euler")
 
 
 def noslip_problem_of(m, d, ctrl) -> S.NoslipProblem:
-    """The noslip sweep problem of one substep from state `d`: the stages
-    up to the Newton solve, then `solver.noslip_problem` with the mass
-    matrix's factor, as `solver.noslip` builds it."""
+    """The noslip sweep problem of one substep from state `d`: the
+    pipeline's forward pass, then the Newton solve again from its
+    outputs and `solver.noslip_problem` with the mass matrix's factor,
+    as `solver.noslip` builds it."""
     s = m.spec
-    _, _, M, M_fac, _, rows, solve = solve_stages(m, d, ctrl, lambda _: None)
-    return S.noslip_problem(M, rows, solve,
+    out = P.forward_core(m, d.qpos, d.qvel, ctrl, d.qacc_warmstart,
+                         d.qfrc_applied)
+    _, M_fac = kernels.chol_solve_factor(out.M, out.qacc_smooth)
+    solve = S.newton_solve(out.M, out.qacc_smooth, out.rows,
+                           d.qacc_warmstart, iterations=s.iterations,
+                           tol_scale=S.newton_tol_scale())
+    return S.noslip_problem(out.M, out.rows, solve,
                             int(np.sum(s.dof_hasfrictionloss)), P.ncmax(s),
                             M_fac)
 
@@ -123,6 +91,31 @@ def gpu_info() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+def device_ops_by_span(events, names) -> dict:
+    """{span: [device operations, their device ms]} of a kineto trace's
+    events: each device operation goes to the innermost of the spans
+    `names` open at its launch on the host ("(no span)" outside all)."""
+    from torch.autograd import DeviceType
+    cpu = [e for e in events if e.device_type() != DeviceType.CUDA]
+    # the runtime's launch calls (cudaLaunchKernel, cudaMemcpyAsync, ...);
+    # an operator's event may carry the same number
+    launched = {e.correlation_id(): e.start_ns() for e in cpu
+                if e.name().startswith("cu") and e.correlation_id()}
+    ranges = [(e.start_ns(), e.end_ns(), e.name()) for e in cpu
+              if e.name() in names]
+    out: dict = {}
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        t = launched.get(e.correlation_id())
+        inner = max(((s0, n) for s0, s1, n in ranges
+                     if t is not None and s0 <= t <= s1), default=None)
+        rec = out.setdefault(inner[1] if inner else "(no span)", [0, 0.0])
+        rec[0] += 1
+        rec[1] += (e.end_ns() - e.start_ns()) * 1e-6
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--envs", type=int, default=512)
@@ -142,20 +135,33 @@ def main():
         * env.act_rng
     torch.cuda.synchronize()
 
-    stage_s: dict = {}
+    trace.enable()
+    sites = collections.Counter()
+    counted = warnings.showwarning
+
+    def showwarning(message, category, filename, lineno, *a, **k):
+        if str(message).startswith(trace.SYNC_WARNING):
+            sites[f"{os.path.relpath(filename)}:{lineno}"] += 1
+        counted(message, category, filename, lineno, *a, **k)
+    warnings.showwarning = showwarning
+    before = dict(trace.counters)
+    wall_s = 0.0
     for _ in range(args.reps):
-        t = [time.perf_counter()]
+        t0 = time.perf_counter()
+        P.step(m, st.data, ctrl)
+        torch.cuda.synchronize()
+        wall_s += time.perf_counter() - t0
+    gained = trace.since(before)
+    per = 1e-6 / args.reps
+    spans = {name: {"ms": v["ns"] * per, "self_ms": v["self_ns"] * per,
+                    "n": v["n"] / args.reps,
+                    "syncs": v.get("syncs", 0) / args.reps}
+             for name, v in trace.spans(gained).items()}
+    substep_ms = 1e3 * wall_s / args.reps
+    launches = {k: gained[k] / args.reps for k in kernels.KERNELS}
+    warnings.showwarning = counted
+    sync_sites = {k: v / args.reps for k, v in sites.most_common()}
 
-        def tick(name):
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            stage_s[name] = stage_s.get(name, 0.0) + now - t[0]
-            t[0] = now
-
-        substep_stages(m, st.data, ctrl, tick)
-    stage_ms = {k: 1e3 * v / args.reps for k, v in stage_s.items()}
-
-    kernels.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -163,28 +169,33 @@ def main():
         P.step(m, st.data, ctrl)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    trace.enable(False)
     evs = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.device_time_total for e in evs) / 1e3
-    top = sorted(prof.key_averages(),
-                 key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    by_span = device_ops_by_span(prof.profiler.kineto_results.events(),
+                                 set(spans))
     out = {
-        "gpu": gpu_info(), "envs": args.envs,
-        "stage_ms": stage_ms, "substep_ms": sum(stage_ms.values()),
+        "gpu": gpu_info(), "envs": args.envs, "reps": args.reps,
+        "substep_ms": substep_ms, "spans": spans,
         "traced_substep_wall_ms": wall_ms,
         "device_kernels": len(evs), "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms,
-        # The trace slows the host; against the untraced substep:
-        "device_idle_share_untraced": 1.0 - device_ms
-        / sum(stage_ms.values()),
-        "port_kernel_launches": dict(kernels.launches),
-        "top_host_ops": [(e.key, e.count, e.self_cpu_time_total / 1e3)
-                         for e in top],
+        # The trace slows the host; against the untraced substeps:
+        "device_idle_share_untraced": 1.0 - device_ms / substep_ms,
+        "device_ops_by_span": by_span, "sync_sites": sync_sites,
+        "port_kernel_launches": launches,
     }
     out["noslip_tol_exit"] = noslip_exit(noslip_problem_of(m, st.data, ctrl),
                                          m.spec.noslip_iterations)
-    for k, v in stage_ms.items():
-        print(f"  {k:18s} {v:9.3f} ms")
+    print(f"  {'span':28s} {'ms':>9s} {'self ms':>9s} {'syncs':>7s} "
+          f"{'device ops':>10s}")
+    for name, v in sorted(spans.items(), key=lambda kv: -kv[1]["self_ms"]):
+        print(f"  {name:28s} {v['ms']:9.3f} {v['self_ms']:9.3f} "
+              f"{v['syncs']:7.1f} {by_span.get(name, [0])[0]:10d}")
+    print("  synchronizing operations a substep by line:")
+    for site, n in list(sync_sites.items())[:15]:
+        print(f"  {n:7.1f} {site}")
     print(json.dumps(out))
 
 

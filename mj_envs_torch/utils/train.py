@@ -20,6 +20,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import trace
 from ..algos import npg as NPG
 from ..algos import ppo as PPO
 from ..algos import sac as SAC
@@ -35,25 +36,32 @@ class ProfilerHook:
     """A `torch.profiler` trace over training episodes 2..3 (steady
     state, after episode 1's kernel builds), enabled by setting
     MJE_PROFILE_DIR; the Chrome trace goes to
-    $MJE_PROFILE_DIR/trace.json."""
+    $MJE_PROFILE_DIR/trace.json.  The tracer (`mj_envs_torch.trace`) is
+    on over those episodes, so the trace shows its spans (`env.step`,
+    `physics.*`, `collide.*`, ...) as ranges around the device work they
+    issue."""
 
     START_EP, STOP_EP = 2, 3
 
     def __init__(self):
         self.dir = os.environ.get("MJE_PROFILE_DIR", "")
         self.prof = None
+        self.traced = False
 
     def before(self, episode: int):
         if self.dir and self.prof is None and episode == self.START_EP:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.traced = trace.enabled()
+            trace.enable()
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
 
     def after(self, episode: int):
         if self.prof is not None and episode >= self.STOP_EP:
             self.prof.stop()
+            trace.enable(self.traced)
             os.makedirs(self.dir, exist_ok=True)
             path = os.path.join(self.dir, "trace.json")
             self.prof.export_chrome_trace(path)
@@ -325,7 +333,6 @@ def train_planet_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
     when given, is called after each.  Returns (PlanetState, metrics)."""
     from ..algos import planet as PL
     from ..algos import replay as RP
-    from ..algos.ppo import _Clock
     from ..render.raster import images_to_observation
 
     out_dir = out_dir or (config.log_path or "results")
@@ -356,7 +363,7 @@ def train_planet_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
         """One single-env rollout acting through the filter and the
         planner (`collect_experience`, train.py:179-195): its reward."""
         module = state.params
-        clock = _Clock(dev)
+        clock = trace.Clock(dev)
         ps = penv.reset(1, gen)
         h = torch.zeros((1, cfg.belief_size), dtype=env.dtype, device=dev)
         s = torch.zeros((1, cfg.state_size), dtype=env.dtype, device=dev)
@@ -395,7 +402,7 @@ def train_planet_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
     prof = ProfilerHook()
     for episode in range(config.seed_episodes + 1, config.max_episodes + 1):
         prof.before(episode)
-        clock = _Clock(dev)
+        clock = trace.Clock(dev)
         times = dict(sample_ms=0.0, update_ms=0.0, plan_ms=0.0, env_ms=0.0)
         for _ in range(config.sample_iters):
             batch = mem.sample(config.batch_size, config.chunk_size)

@@ -12,6 +12,7 @@
   learners raise.  Pixel PPO and PlaNet raise, naming their slice.
 """
 import csv
+import json
 import os
 
 import numpy as np
@@ -22,6 +23,7 @@ from mj_envs_tpu.utils import config as JC
 from mj_envs_tpu.utils import eval as JE
 from mj_envs_torch import envs as tenvs
 from mj_envs_torch import run as trun
+from mj_envs_torch import trace
 from mj_envs_torch.algos import ppo as TP
 from mj_envs_torch.utils import checkpoint as CKPT
 from mj_envs_torch.utils import config as TC
@@ -116,10 +118,16 @@ def test_train_checkpoint_and_resume(door, tmp_path, capsys):
 
 
 def test_profiler_hook_traces_episodes_2_to_3(door, tmp_path, monkeypatch):
+    """The trace holds the tracer's spans as ranges (the tracer on over
+    the profiled episodes only)."""
     monkeypatch.setenv("MJE_PROFILE_DIR", str(tmp_path / "prof"))
     TT.train_ppo_policy(small_config(max_episodes=3, checkpoint_interval=9),
                         door, str(tmp_path))
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    with open(tmp_path / "prof" / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"env.step", "physics.substep", "physics.collide"} <= names
+    assert not trace.enabled()
 
 
 def test_evaluate_is_a_plain_fixed_length_rollout(door):
