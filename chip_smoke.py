@@ -602,6 +602,71 @@ def compare_fk(envs, VectorEnv, apply_var, dev):
                 max_abs_err=worst, library_ms=None, **hammer)
 
 
+# The float32 adds, multiplies, divides and square roots of one instance
+# on each cylinder kernel's costliest path, counted from
+# csrc/narrow_cyl.cu: the generic convex contact (48 projection rounds,
+# 1 + K support gaps, 24 polish steps, 3 support points) and its set-up;
+# capsule-cylinder's 67 point distances and its two contacts; the four
+# rim points of plane-cylinder.  A cap, side, standing or lying instance
+# takes a few hundred, so the bound below is the most these inputs need.
+NARROW_FLOPS = {"narrow_plane_cylinder": 141,
+                "narrow_capsule_cylinder": 3590,
+                "narrow_cylinder_cylinder": 8289,
+                "narrow_cylinder_box": 8234}
+
+
+def compare_narrow(envs, VectorEnv, random_actions, dev):
+    """Phase 3, the narrowphase's cylinder kernels: each entry point on
+    its group of a real 512-env hammer chunk (a reset and two random
+    steps), bit for bit against the plain function on the card; kernel
+    and plain ms (CUDA events behind the spin kernel), and the bound:
+    each distinct geom's pose read once per env, the sizes and geom ids
+    once, each candidate's dist, pos and nrm written once.  Returns the
+    JSON entries."""
+    from mj_envs_torch.physics.collision import driver as C
+    from mj_envs_torch.physics.collision import narrow_cuda as NC
+    env = envs.make("hammer-v0", device=dev)
+    venv = VectorEnv(env, B_CHUNK)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    st = venv.reset(seed=0)
+    for _ in range(2):
+        st = venv.step(st, random_actions(gen, B_CHUNK, env.nu, dev))
+    s = env.spec
+    xpos, xmat = st.data.geom_xpos, st.data.geom_xmat
+    size = env.model.geom_size
+    entries = []
+    for key, pids in C._groups(s):
+        if key not in NC.KERNELS:
+            continue
+        name, nc = NC.KERNELS[key]
+        g1, g2 = NC.group_tables(s, pids, dev)
+        zero = torch.zeros(len(pids), device=dev)
+
+        def kernel():
+            return NC.narrow_cylinder_cuda(key, xpos, xmat, size, g1, g2)
+
+        def plain():
+            return C.plain_group(key, xpos, xmat, size.expand(B_CHUNK, -1, -1),
+                                 g1.long(), g2.long(), zero)
+        for what, a, b in zip(("dist", "pos", "nrm"), kernel(), plain()):
+            same_bits(f"{name} ({len(pids)} pairs) {what} vs the plain "
+                      f"function", a, b)
+        geoms = len(set(s.pair_geom1[pids]) | set(s.pair_geom2[pids]))
+        nbytes = (B_CHUNK * geoms * 12 + geoms * 3 + 2 * len(pids)
+                  + B_CHUNK * len(pids) * nc * 7) * F32
+        bms, by = bound(nbytes, B_CHUNK * len(pids) * NARROW_FLOPS[name])
+        ms = time_ms(kernel, 50)
+        plain_ms = time_ms(plain, 3, 1)
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library -, bound {bms * 1e3:.2f} us ({by})")
+        entries.append(dict(
+            name=name, route="cuda", source="mj_envs_torch/csrc/narrow_cyl.cu",
+            replaces="none (the JAX package's narrowphase, XLA-fused)",
+            launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            bound_ms=bms, bound_by=by, library_ms=None))
+    return entries
+
+
 def hammer_chunk_noslip(envs, VectorEnv, random_actions, apply_var, dev):
     """Phase 3: the noslip sweep problem of one 512-env hammer chunk,
     reset and stepped once with seeded random actions."""
@@ -2475,6 +2540,7 @@ def main():
         return
     log(f"[3] kernels vs plain versions at B = {B_CHUNK}:")
     entries = [compare_fk(envs, VectorEnv, _apply_var, dev)]
+    entries += compare_narrow(envs, VectorEnv, random_actions, dev)
     entries += compare_kernels(TK, dev, real)
     kernel_digests(TK, dev, real)
 

@@ -23,7 +23,7 @@ from .. import trace
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(PKG, "_build")
-SOURCES = ("chol.cu", "fk.cu", "linesearch.cu", "noslip.cu")
+SOURCES = ("chol.cu", "fk.cu", "linesearch.cu", "noslip.cu", "narrow_cyl.cu")
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -113,6 +113,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "linesearch_seq": [P] * 8 + [I, I, I, I, P],
         "noslip_sweep": [P] * 9 + [I, I, I, F, P],
     }
+    narrow = [P, P, P, I, P, P, I, I, I, P, P, P, P]
+    sigs.update((name, narrow) for name in (
+        "narrow_plane_cylinder", "narrow_capsule_cylinder",
+        "narrow_cylinder_cylinder", "narrow_cylinder_box"))
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -13,7 +13,9 @@ from ... import trace
 from ..model import (Model, GEOM_PLANE, GEOM_SPHERE, GEOM_CAPSULE,
                      GEOM_CYLINDER, GEOM_BOX)
 from ..kinematics import Kin
+from ..kernels import _on_card
 from ..maths import cross, norm
+from . import narrow_cuda
 from . import narrowphase as NP
 
 # Narrowphase function and contact slots per (type1, type2): all 14 pair
@@ -91,9 +93,27 @@ def _groups(s):
     return groups
 
 
+def plain_group(key, xpos, xmat, size, g1, g2, margin):
+    """The plain pair function of type `key` over the (env, pair) rows of
+    one group, geom ids g1, g2 (P,) and margins (P,), sizes (B, ngeom,
+    3): (dist (B, P C), pos (B, P C, 3), nrm (B, P C, 3))."""
+    B, P = xpos.shape[0], g1.shape[0]
+    flat = lambda x: x.reshape((B * P,) + x.shape[2:])
+    d, p, n = _FNS[key][0](flat(xpos[:, g1]), flat(xmat[:, g1]),
+                           flat(size[:, g1]), flat(xpos[:, g2]),
+                           flat(xmat[:, g2]), flat(size[:, g2]),
+                           margin.expand(B, P).reshape(B * P))
+    C = d.shape[-1]
+    return (d.reshape(B, P * C), p.reshape(B, P * C, 3),
+            n.reshape(B, P * C, 3))
+
+
 def narrowphase_all(m: Model, kin: Kin) -> Contact:
     """Narrowphase over every candidate pair; one batched call per type
-    group over (env, pair), results in slot order."""
+    group over (env, pair), results in slot order.  On the float32 card
+    path a cylinder group is one launch of its kernel (`narrow_cuda`);
+    the tracer counts the (env, pair) rows of each path
+    (`collide.kernel_rows`, `collide.plain_rows`)."""
     s = m.spec
     dtype, dev = kin.geom_xpos.dtype, kin.geom_xpos.device
     B = kin.geom_xpos.shape[0]
@@ -102,24 +122,27 @@ def narrowphase_all(m: Model, kin: Kin) -> Contact:
     chunks_d, chunks_p, chunks_n = [], [], []
     for key, pids in _groups(s):
         with trace.span(_SPANS[key]):
-            fn, _ = _FNS[key]
             P = len(pids)
-            pids_np = np.asarray(pids)
-            g1 = torch.as_tensor(s.pair_geom1[pids_np], dtype=torch.long,
-                                 device=dev)
-            g2 = torch.as_tensor(s.pair_geom2[pids_np], dtype=torch.long,
-                                 device=dev)
-            flat = lambda x: x.reshape((B * P,) + x.shape[2:])
-            marg = m.pair_margin[torch.as_tensor(pids_np, device=dev)]
-            d, p, n = fn(flat(kin.geom_xpos[:, g1]),
-                         flat(kin.geom_xmat[:, g1]), flat(size[:, g1]),
-                         flat(kin.geom_xpos[:, g2]),
-                         flat(kin.geom_xmat[:, g2]), flat(size[:, g2]),
-                         marg.expand(B, P).reshape(B * P))
-            Cn = d.shape[-1]
-            chunks_d.append(d.reshape(B, P * Cn).to(dtype))
-            chunks_p.append(p.reshape(B, P * Cn, 3).to(dtype))
-            chunks_n.append(n.reshape(B, P * Cn, 3).to(dtype))
+            if key in narrow_cuda.KERNELS and _on_card(
+                    kin.geom_xpos, kin.geom_xmat, m.geom_size):
+                trace.count("collide.kernel_rows", B * P)
+                d, p, n = narrow_cuda.narrow_cylinder_cuda(
+                    key, kin.geom_xpos.contiguous(),
+                    kin.geom_xmat.contiguous(), m.geom_size.contiguous(),
+                    *narrow_cuda.group_tables(s, pids, dev))
+            else:
+                trace.count("collide.plain_rows", B * P)
+                pids_np = np.asarray(pids)
+                g1 = torch.as_tensor(s.pair_geom1[pids_np], dtype=torch.long,
+                                     device=dev)
+                g2 = torch.as_tensor(s.pair_geom2[pids_np], dtype=torch.long,
+                                     device=dev)
+                marg = m.pair_margin[torch.as_tensor(pids_np, device=dev)]
+                d, p, n = plain_group(key, kin.geom_xpos, kin.geom_xmat,
+                                      size, g1, g2, marg)
+            chunks_d.append(d.to(dtype))
+            chunks_p.append(p.to(dtype))
+            chunks_n.append(n.to(dtype))
     dist = torch.cat(chunks_d, dim=1)
     pos = torch.cat(chunks_p, dim=1)
     nrm = torch.cat(chunks_n, dim=1)

@@ -20,7 +20,10 @@ in CUDA (`mj_envs_torch/csrc/`, built by `_build.py`):
                            (TPU `_noslip_kernel`)
 
 The eighth kernel, the fused forward kinematics (``fk``, TPU
-`_fk_kernel`), has its wrapper in `kinematics.py` and is counted here.
+`_fk_kernel`), has its wrapper in `kinematics.py` and is counted here,
+as are the narrowphase's four cylinder pair types (``narrow_*``, no TPU
+kernel: `csrc/narrow_cyl.cu`), whose wrapper is in
+`collision/narrow_cuda.py`.
 
 Two more CUDA kernels are references, not ports: ``linesearch_seq_cuda``
 (the sequential search that ``linesearch`` and ``linesearch_cost`` equal
@@ -52,7 +55,9 @@ import torch
 from .. import trace
 
 KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
-           "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat")
+           "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat",
+           "narrow_plane_cylinder", "narrow_capsule_cylinder",
+           "narrow_cylinder_cylinder", "narrow_cylinder_box")
 launches: Dict[str, int] = trace.counters
 launches.update((k, 0) for k in KERNELS)
 CHOL_SOLVE_MAX_NV = 64   # chol.cu's kMaxSolveNv: two columns per lane

@@ -12,6 +12,8 @@ and PyTorch alone:
 `chip_smoke.py` holds the same kernels against their plain versions at
 the main path's shapes.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -419,3 +421,141 @@ def test_cuda_render_matches_cpu(cuda):
     assert img_k.shape == (4, 128, 128, 3) and float(img_c.std()) > 5.0
     far = (img_k.cpu() - img_c).abs().amax(-1) > 1.0
     assert int(far.sum()) == 0, float(far.double().mean())
+
+
+# ---------------------------------------------------------------------------
+# The narrowphase's cylinder kernel (csrc/narrow_cyl.cu)
+# ---------------------------------------------------------------------------
+
+def _narrow_plain(key, xpos, xmat, size, g1, g2):
+    """The plain pair function over a group's (env, pair) rows, as
+    `driver.narrowphase_all` calls it (the cylinder pairs read no
+    margin)."""
+    from mj_envs_torch.physics.collision import driver as C
+    B, P = xpos.shape[0], g1.shape[0]
+    sz = size if size.dim() == 3 else size.expand(B, -1, -1)
+    return C.plain_group(key, xpos, xmat, sz, g1.long(), g2.long(),
+                         torch.zeros(P, dtype=xpos.dtype, device=xpos.device))
+
+
+def _same_or_both_nan(a, b):
+    """Equal bit for bit (as torch.equal compares), NaN where the other
+    is NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
+
+
+def _narrow_both(key, xpos, xmat, size, g1, g2):
+    """The kernel and the plain version on the card; one launch."""
+    from mj_envs_torch.physics.collision import narrow_cuda as NC
+    name = NC.KERNELS[key][0]
+    n = TK.launches[name]
+    out_k = NC.narrow_cylinder_cuda(key, xpos, xmat, size, g1, g2)
+    torch.cuda.synchronize()
+    assert TK.launches[name] == n + 1
+    return out_k, _narrow_plain(key, xpos, xmat, size, g1, g2)
+
+
+_CYL_KEYS = [(0, 5), (3, 5), (5, 5), (5, 6)]   # plane, capsule, cylinder,
+_CYL_IDS = ["plane_cylinder", "capsule_cylinder", "cylinder_cylinder",
+            "cylinder_box"]                    # cylinder and box geom1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", _CYL_KEYS, ids=_CYL_IDS)
+def test_cuda_narrow_cylinder_probes(cuda, key):
+    """Each cylinder kernel against its plain function on the card, bit
+    for bit, on numpy probes that reach every branch (random, and cap on
+    cap, side by side, standing, lying, parallel axes: see
+    `random_cylinder_pairs`), each instance an env of two geoms with its
+    own sizes (the per-env size path); env 5 NaN: a dist of it NaN, and
+    every output NaN where the plain version's is."""
+    from mj_envs_torch.physics.collision import narrow_cuda as NC
+    xpos, xmat, size = NC.random_cylinder_pairs(
+        np.random.default_rng(23), key, 1000)
+    xpos[5] = np.nan
+    args = [torch.as_tensor(x).to(cuda) for x in (xpos, xmat, size)]
+    g = [torch.tensor([i], dtype=torch.int32, device=cuda) for i in (0, 1)]
+    out_k, out_p = _narrow_both(key, *args, *g)
+    for what, a, b in zip(("dist", "pos", "nrm"), out_k, out_p):
+        assert _same_or_both_nan(a, b), what
+        assert torch.isfinite(a[torch.arange(1000, device=cuda) != 5]).all()
+    assert torch.isnan(out_k[0][5]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 77, 512])
+@pytest.mark.parametrize("task", ["hammer-v0", "door-v0", "pen-v0"])
+def test_cuda_narrow_cylinder_real_states(cuda, task, B):
+    """Each of the task's cylinder groups, kernel against plain function
+    on the card, bit for bit, on the task's states after a reset and
+    three random steps; with shared and per-env geom sizes; with one env
+    NaN (its rows NaN in both).  The step itself launches one kernel a
+    cylinder group a substep."""
+    from mj_envs_torch import envs
+    from mj_envs_torch.parallel.vector import VectorEnv, random_actions
+    from mj_envs_torch.physics.collision import driver as C
+    from mj_envs_torch.physics.collision import narrow_cuda as NC
+    env = envs.make(task, device=cuda)
+    venv = VectorEnv(env, B, chunk_size=512)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    st = venv.reset(seed=4)
+    groups = [(k, p) for k, p in C._groups(env.spec) if k in NC.KERNELS]
+    names = [NC.KERNELS[k][0] for k, _ in groups]
+    for _ in range(3):
+        before = {k: TK.launches[k] for k in names}
+        st = venv.step(st, random_actions(gen, B, env.nu, cuda))
+        # one launch a group a substep (the reset does not collide)
+        assert {k: TK.launches[k] - before[k] for k in names} \
+            == dict.fromkeys(names, env.FRAME_SKIP)
+    xpos, xmat = st.data.geom_xpos, st.data.geom_xmat
+    nan = xpos.clone()
+    nan[B // 2] = float("nan")
+    size = env.model.geom_size
+    rng = np.random.default_rng(8)
+    per_env = (size * torch.as_tensor(
+        rng.uniform(0.8, 1.2, (B,) + tuple(size.shape)),
+        dtype=torch.float32, device=cuda)).contiguous()
+    for key, pids in groups:
+        g1, g2 = NC.group_tables(env.spec, pids, cuda)
+        for xp, sz in ((xpos, size), (xpos, per_env), (nan, size)):
+            out_k, out_p = _narrow_both(key, xp, xmat, sz, g1, g2)
+            for what, a, b in zip(("dist", "pos", "nrm"), out_k, out_p):
+                assert _same_or_both_nan(a, b), (key, what)
+
+
+@pytest.mark.cuda
+def test_cuda_narrowphase_float64_launches_no_kernel(cuda):
+    """float64 on the card takes the plain functions: narrowphase_all on
+    hammer's float64 state launches none of the cylinder kernels and
+    equals the CPU's."""
+    from mj_envs_torch import envs
+    from mj_envs_torch.physics.collision import driver as C
+    from mj_envs_torch.physics.collision import narrow_cuda as NC
+    env = envs.make("hammer-v0", device=cuda, dtype=torch.float64)
+    st = env.reset(4, env.generator(0))
+    names = [name for name, _ in NC.KERNELS.values()]
+    before = {k: TK.launches[k] for k in names}
+    con = C.narrowphase_all(env.model, st.data)
+    torch.cuda.synchronize()
+    assert all(TK.launches[k] == before[k] for k in names)
+    assert con.dist.dtype == torch.float64
+    kin_c = SimpleNamespace(geom_xpos=st.data.geom_xpos.cpu(),
+                            geom_xmat=st.data.geom_xmat.cpu())
+    con_c = C.narrowphase_all(env.model.to("cpu"), kin_c)
+    for a, b in zip(con[:3], con_c[:3]):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_narrowphase_float16_raises(cuda):
+    """A float16 state on the card reaches a cylinder group and raises,
+    as every kernel's front end does for a dtype it does not take."""
+    from mj_envs_torch import envs
+    from mj_envs_torch.physics.collision import driver as C
+    env = envs.make("hammer-v0", device=cuda)
+    st = env.reset(2, env.generator(0))
+    half = st.data.replace(geom_xpos=st.data.geom_xpos.half(),
+                           geom_xmat=st.data.geom_xmat.half())
+    with pytest.raises(TypeError, match="float32"):
+        C.narrowphase_all(env.model, half)

@@ -58,6 +58,10 @@ def world():
 
 @pytest.mark.parametrize("task", sorted(PER_ENV))
 def test_kinematics_parallel_matches_jax(task):
+    # The JAX package keys its parallel-FK tables by id(spec): an entry
+    # left by a spec that an earlier test freed would be read by a new
+    # spec at the same address (another task's tables), so start empty.
+    JK._FK_PAR_STATIC.clear()
     jm = jenvs.make(task).model
     spec = tenvs.make(task, device="cpu").spec
     rng = np.random.default_rng(3)
