@@ -23,6 +23,12 @@ single-process ones; GAE runs on its rows; the trajectory, advantages
 and returns are gathered over the mesh's "env" axis in row order, and
 every rank runs the same update on the global batch with the same
 generator, so the params stay identical with no gradient all-reduce.
+The gathers and the all-reduce of `nan_resets` are the tracer's span
+`ppo.gather`, and the bytes of the other shards' rows that they bring
+to this rank its counter `ppo.gather_bytes`; timed iterations reduce the rollout's ms
+over the env shards first (`rollout_ms_max`, `rollout_ms_min`), which
+waits for the slowest shard (`wait_ms`), and then lap the gathers
+alone (`gather_ms`).
 
 The optimizer is the JAX package's `optax.chain(clip_by_global_norm,
 adam)`: the clip is written out (optax scales by max_norm / g_norm only
@@ -38,8 +44,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from . import networks as N
+from .. import trace
 from ..envs.base import AdroitEnv, EnvState
 from ..parallel.distributed import (all_gather_rows, all_reduce_env,
+                                     env_shards, max_min_env,
                                      process_local_batch)
 from ..parallel.vector import shard_plan, step_rows
 from ..trace import Clock
@@ -176,9 +184,12 @@ def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of,
     timings=None) -> (train_state, state, metrics): rollout, GAE from
     the value of obs_of(last state), the update (on the trajectory
     gathered over the mesh's env axis, with a mesh).  `timings`, when
-    given, receives the ms of the rollout, GAE and update (synchronizing
-    the card between them) and whatever parts of the rollout
-    rollout(train_state, state, noise, timings) times itself."""
+    given, receives the ms of the rollout, GAE, the gather (with a mesh)
+    and update (synchronizing the card between them) and whatever parts
+    of the rollout rollout(train_state, state, noise, timings) times
+    itself; with a mesh also the rollout's ms over the env shards
+    (`rollout_ms_max`, `rollout_ms_min`: one more all-reduce, before
+    the gather) and the ms until every shard is there (`wait_ms`)."""
     update = _make_update(cfg)
 
     def train_iter_fn(ts: TrainState, state, noise=None, perms=None,
@@ -191,14 +202,19 @@ def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of,
             last_value = ts.module(obs_of(state))[2]
         advs, rets = _gae(cfg, traj, last_value)
         nan_resets = env_state_of(state).nan_resets.sum()
-        if mesh is not None:
-            traj = Transition(*(all_gather_rows(mesh, x, dim=1)
-                                for x in traj))
-            advs, rets = (all_gather_rows(mesh, x, dim=1)
-                          for x in (advs, rets))
-            nan_resets = all_reduce_env(mesh, nan_resets)
         if clock:
             timings["gae_ms"] = clock.lap()
+        if mesh is not None:
+            if clock:
+                # every shard here: the wait for the slowest, lapped
+                # apart so that the gather's lap is the transfer alone
+                timings["rollout_ms_max"], timings["rollout_ms_min"] = \
+                    max_min_env(mesh, timings["rollout_ms"], dev)
+                timings["wait_ms"] = clock.lap()
+            traj, advs, rets, nan_resets = _gather(mesh, traj, advs, rets,
+                                                   nan_resets)
+            if clock:
+                timings["gather_ms"] = clock.lap()
         metrics = update(ts, traj, advs, rets, perms)
         metrics["mean_reward"] = traj.reward.mean()
         metrics["mean_episode_done"] = traj.done.to(traj.reward.dtype).mean()
@@ -208,6 +224,22 @@ def _make_train_iter(cfg: PPOConfig, dev, rollout, obs_of, env_state_of,
         return ts, state, metrics
 
     return train_iter_fn
+
+
+def _gather(mesh, traj: Transition, advs, rets, nan_resets):
+    """Every env shard's trajectory, advantages and returns joined in
+    row order, and nan_resets summed over the shards (the span
+    `ppo.gather`; the counter `ppo.gather_bytes` adds the bytes of the
+    other shards' rows that reach this rank, each shard's the size of
+    this rank's)."""
+    local = (*traj, advs, rets, nan_resets)
+    with trace.span("ppo.gather"):
+        traj = Transition(*(all_gather_rows(mesh, x, dim=1) for x in traj))
+        advs, rets = (all_gather_rows(mesh, x, dim=1) for x in (advs, rets))
+        nan_resets = all_reduce_env(mesh, nan_resets)
+    trace.count("ppo.gather_bytes", (env_shards(mesh) - 1)
+                * sum(x.nbytes for x in local))
+    return traj, advs, rets, nan_resets
 
 
 def act(module, obs, generator, noise=None):

@@ -16,6 +16,7 @@ parallel layers (`dryrun.py`).
 """
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 from typing import Optional, Tuple
@@ -28,7 +29,8 @@ from ..envs.base import EnvState
 
 def initialize(init_method: Optional[str] = None,
                world_size: Optional[int] = None,
-               rank: Optional[int] = None, device="cuda") -> None:
+               rank: Optional[int] = None, device="cuda",
+               timeout: Optional[float] = None) -> None:
     """Join the process group.
 
     With no arguments it reads torchrun's MASTER_ADDR / MASTER_PORT /
@@ -36,7 +38,8 @@ def initialize(init_method: Optional[str] = None,
     single-process run), so callers call it unconditionally; it also does
     nothing when a group already exists.  NCCL for device "cuda", each
     rank bound to cuda:LOCAL_RANK (the card is required: no fallback to
-    the CPU), gloo for device "cpu"."""
+    the CPU), gloo for device "cpu".  `timeout`, in seconds, bounds
+    each collective and the rendezvous (torch's default where None)."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -56,9 +59,11 @@ def initialize(init_method: Optional[str] = None,
                 "no CUDA device: the NCCL group runs on the card; pass "
                 "device='cpu' for a gloo group on the CPU")
         torch.cuda.set_device(int(env.get("LOCAL_RANK", rank or 0)))
+    kw = {} if timeout is None else dict(
+        timeout=datetime.timedelta(seconds=timeout))
     dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
                             init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, **kw)
 
 
 def free_port() -> int:
@@ -97,12 +102,17 @@ def env_sharding(mesh, dim: int = 0):
                  for name in mesh.mesh_dim_names)
 
 
+def env_shards(mesh, env_axis: str = ENV_AXIS) -> int:
+    """The number of env shards: the mesh's size along `env_axis`."""
+    return mesh.size(mesh.mesh_dim_names.index(env_axis))
+
+
 def process_local_batch(mesh, global_num_envs: int,
                         env_axis: str = ENV_AXIS) -> Tuple[int, int]:
     """(local_envs, offset): this rank's rows of the global env batch,
     per_shard = global / env shards at its env coordinate."""
     i = mesh.mesh_dim_names.index(env_axis)
-    n_env_shards = mesh.size(i)
+    n_env_shards = env_shards(mesh, env_axis)
     if global_num_envs % n_env_shards:
         raise ValueError(f"{global_num_envs} envs do not split over "
                          f"{n_env_shards} env shards")
@@ -129,6 +139,15 @@ def all_reduce_env(mesh, x: torch.Tensor) -> torch.Tensor:
     y = x.clone()
     dist.all_reduce(y, group=mesh.get_group(ENV_AXIS))
     return y
+
+
+def max_min_env(mesh, value: float, device) -> Tuple[float, float]:
+    """(largest, smallest) of a host number over the env shards: one
+    all-reduce of two float64s on `device`."""
+    t = torch.tensor([value, -value], dtype=torch.float64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(ENV_AXIS))
+    hi, neg_lo = t.tolist()
+    return hi, -neg_lo
 
 
 def global_env_state(mesh, local_state: EnvState) -> EnvState:

@@ -106,11 +106,8 @@ class VectorEnv:
 
     def reset(self, seed: int = 0) -> EnvState:
         self.generator = self.env.generator(seed)
-        var = self.env._reset_var(self.env.base_var(self.num_envs),
-                                  self.generator)
-        lo, hi = self.offset, self.offset + self.local
-        return self.env.reset_from_var(
-            type(var)(**{f: t[lo:hi] for f, t in var.items()}))
+        return reset_rows(self.env, self.num_envs, self.generator,
+                          self.offset, self.local)
 
     def step(self, state: EnvState, actions: torch.Tensor) -> EnvState:
         """Auto-resetting batched step (the RL rollout primitive)."""
@@ -123,6 +120,16 @@ class VectorEnv:
                       actions: torch.Tensor) -> EnvState:
         """Plain batched step (parity testing / fixed-length eval)."""
         return _chunked(self.env.step, state, actions, self.chunk_size)
+
+
+def reset_rows(env: AdroitEnv, num_envs: int, generator: torch.Generator,
+               offset: int, local: int) -> EnvState:
+    """Rows [offset, offset + local) of env.reset(num_envs, generator):
+    the draws of every row are made, so the generator ends where the
+    whole reset leaves it, and only these rows are reset."""
+    var = env._reset_var(env.base_var(num_envs), generator)
+    return env.reset_from_var(type(var)(**{
+        f: t[offset:offset + local] for f, t in var.items()}))
 
 
 def step_rows(env: AdroitEnv, fn: Callable, state: EnvState,

@@ -7,6 +7,17 @@
     python -m mj_envs_torch.run configs/door_npg.json dapg
     python -m mj_envs_torch.run configs/hammer_planet.json planet
 
+PPO on state observations trains over the cards of one node under
+torchrun, data-parallel: each process joins the group, steps
+`num_envs` envs on its card (the global batch is num_envs x the
+processes), and every process runs the update on the gathered batch
+(`utils/train.train_ppo_policy(mesh=...)`); rank 0 alone logs the
+global env-steps, evaluates and writes the results.  Without torchrun
+the run is one process on one card.
+
+    torchrun --standalone --nproc_per_node=4 -m mj_envs_torch.run \
+        configs/hammer_ppo.json ppo
+
 Policy types: ppo (on pixels when the config's `model_type` is "cnn"),
 npg (natural policy gradient), sac (soft actor-critic), dapg or default
 (evaluate the pretrained DAPG policy of the config's task, from the
@@ -31,9 +42,10 @@ POLICY_TYPES = ("ppo", "npg", "sac", "dapg", "default", "planet")
 
 def main(argv):
     import torch
+    import torch.distributed as dist
 
     import mj_envs_torch  # noqa: F401  (float32 matmul settings)
-    from mj_envs_torch import envs
+    from mj_envs_torch.parallel import distributed as D
     from mj_envs_torch.utils.config import PPOConfig, load_config
 
     config_path = argv[1] if len(argv) > 1 else None
@@ -57,18 +69,43 @@ def main(argv):
 
     if not config.env_name:
         raise ValueError("config.env_name required")
+
+    joined = not dist.is_initialized()
+    D.initialize(device=config.device_type)      # torchrun's group, if any
+    try:
+        _run(config, policy_type, debug_nans)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(config, policy_type: str, debug_nans: bool):
+    import torch.distributed as dist
+
+    from mj_envs_torch import envs
+    from mj_envs_torch.parallel import distributed as D
+
+    mesh = None
+    if dist.is_initialized():
+        if policy_type != "ppo":
+            raise ValueError(f"{policy_type} runs on one card: only ppo "
+                             f"trains over the cards of a torchrun group")
+        mesh = D.make_mesh(device=config.device_type)
+    lead = mesh is None or dist.get_rank() == 0
     env = envs.make(config.env_name,
                     variation_type=config.variation_type or None,
                     device=config.device_type)
 
     out_dir = config.log_path or f"results/{config.run_id}_{policy_type}"
-    os.makedirs(out_dir, exist_ok=True)
-    config.save(os.path.join(out_dir, "config.json"))
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
+        config.save(os.path.join(out_dir, "config.json"))
 
     t0 = time.time()
     if policy_type == "ppo":
         from mj_envs_torch.utils.train import train_ppo_policy
-        train_ppo_policy(config, env, out_dir, debug_nans=debug_nans)
+        train_ppo_policy(config, env, out_dir, debug_nans=debug_nans,
+                         mesh=mesh)
     elif policy_type in ("dapg", "default"):
         from mj_envs_torch.algos import dapg
         from mj_envs_torch.utils.eval import dapg_policy_apply, make_evaluate
@@ -89,7 +126,8 @@ def main(argv):
     else:
         from mj_envs_torch.utils.train import train_planet_policy
         train_planet_policy(config, env, out_dir)
-    print(f"done in {time.time() - t0:.0f}s -> {out_dir}")
+    if lead:
+        print(f"done in {time.time() - t0:.0f}s -> {out_dir}")
 
 
 if __name__ == "__main__":

@@ -19,6 +19,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import trace
 from ..algos import npg as NPG
@@ -26,6 +27,8 @@ from ..algos import ppo as PPO
 from ..algos import sac as SAC
 from ..envs.base import AdroitEnv
 from ..envs.pixels import PixelObservationEnv
+from ..parallel.distributed import env_shards, process_local_batch
+from ..parallel.vector import reset_rows
 from . import checkpoint as CKPT
 from .eval import make_evaluate, make_pixel_evaluate
 
@@ -125,7 +128,7 @@ def ppo_config(config) -> PPO.PPOConfig:
 
 def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
                      debug_nans: bool = False,
-                     callback: Optional[Callable] = None):
+                     callback: Optional[Callable] = None, mesh=None):
     """PPO training to `config.max_episodes` iterations on
     `config.device_type` (the card by default; the env must be on it),
     on state observations or, with `model_type` "cnn", on 64x64 pixels
@@ -135,11 +138,24 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
     of its rollout (for pixels also of its physics, render and policy
     parts), GAE and update; `callback(episode, row)`, when
     given, is called after each iteration.  `debug_nans` raises on an
-    env state that the quarantine would restart."""
+    env state that the quarantine would restart.
+
+    With `mesh` (`parallel/distributed.make_mesh`; state observations
+    only) `config.num_envs` envs run on each env shard: this rank resets
+    and steps its rows of the global batch, and every rank runs the
+    update on the gathered batch (`make_ppo(mesh=...)`), so the run is
+    the single-process one over the global batch.  Env-steps count
+    globally; rank 0 alone evaluates, writes checkpoints, metrics.csv
+    and TensorBoard, and prints."""
     out_dir = out_dir or (config.log_path or "results")
     cfg = ppo_config(config)
     num_envs = config.num_envs
     model_type = getattr(config, "model_type", "mlp") or "mlp"
+    lead = mesh is None or dist.get_rank() == 0
+    if mesh is not None:
+        if model_type == "cnn":
+            raise ValueError("pixel PPO runs on one card: no mesh")
+        num_envs *= env_shards(mesh)
 
     def eval_policy(module, obs, generator):
         return torch.clamp(module(obs)[0], -1.0, 1.0)
@@ -157,8 +173,11 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
     else:
         init_fn, train_iter_fn, _ = PPO.make_ppo(
             env, num_envs, cfg, device=config.device_type,
-            debug_nans=debug_nans)
+            debug_nans=debug_nans, mesh=mesh)
         reset = env.reset
+        if mesh is not None:
+            local, offset = process_local_batch(mesh, num_envs)
+            reset = lambda n, gen: reset_rows(env, n, gen, offset, local)
         evaluate = make_evaluate(env, eval_policy, env.MAX_EPISODE_STEPS)
 
     train_state = init_fn(config.seed)
@@ -168,10 +187,13 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
     latest = CKPT.latest(out_dir)
     if latest and config.models_path != "":
         train_state = CKPT.restore(latest, train_state)
-        print(f"resumed from {latest}")
+        if lead:
+            print(f"resumed from {latest}")
 
-    metrics = Metrics(tb_dir=out_dir)
+    metrics = Metrics(tb_dir=out_dir if lead else None)
     prof = ProfilerHook()
+    if not lead:
+        prof.dir = ""
     sps_hist = []
     for episode in range(1, config.max_episodes + 1):
         prof.before(episode)
@@ -189,6 +211,8 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
         if callback is not None:
             callback(episode, row)
 
+        if not lead:
+            continue
         if PROF and (episode % 10 == 0 or episode == 1):
             print(f"ep {episode:5d} reward {row['mean_reward']:8.3f} "
                   f"| {env_steps / dt:9.0f} env-steps/s "
@@ -205,7 +229,8 @@ def train_ppo_policy(config, env: AdroitEnv, out_dir: Optional[str] = None,
         if episode % config.checkpoint_interval == 0:
             CKPT.save(CKPT.checkpoint_path(out_dir, episode), train_state)
 
-    metrics.save_csv(os.path.join(out_dir, "metrics.csv"))
+    if lead:
+        metrics.save_csv(os.path.join(out_dir, "metrics.csv"))
     metrics.close()
     return train_state, metrics
 
