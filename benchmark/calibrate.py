@@ -7,10 +7,13 @@ cell at its own size (not run by the benchmark's own runs).
 For each seed, in one process: the cell's set-up (warm-up unit included)
 and `--units` more units at the cell's load, then the check's numbers
 for the program and for the control: the reference in float32 with TF32
-matrix products in the program's place.  With `--fault` the program runs
-with that fault planted (`lib/faults.py`).  One JSON line per seed, then
-a summary: for each number the program's largest reading and the
-control's smallest.
+matrix products in the program's place.  The check is the one a run
+builds: a rollout cell's at its fixed unit (`check_at`, stepped on to
+where `--units` stops short of it), a PPO cell's at the last unit.  With
+`--fault` the program runs with that fault planted (`lib/faults.py`),
+up to the check's last unit.  One JSON line per seed, then a summary:
+for each number the program's largest reading and the control's
+smallest.
 """
 import argparse
 import json
@@ -58,7 +61,8 @@ def main(argv=None) -> int:
                 d.close()
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-        chk = kind.Check(d, cell, seed)
+            # inside the fault: a rollout check steps on to its unit
+            chk = kind.Check(d, cell, seed)
         del d
         t1 = time.perf_counter()
         line = {"seed": seed, "program": chk.numbers(dev)}

@@ -5,12 +5,18 @@ device from the seed; each env's `step_count` drawn in
 [0, max_episode_steps) at set-up (`staggered_phase`), so that some envs
 reach the cap in every step, as in a long-running rollout.
 
-The check holds the window's last `check_units` steps (a sample of envs
-drawn from the seed, every restarted env first) and the initial reset
-against the reference (`lib/check.py`)."""
+The check holds a fixed stretch of units against the reference
+(`lib/check.py`): units `check_at` - `check_units` + 1 ... `check_at`,
+counted from set-up (the warm-up unit is unit 1), a sample of envs drawn
+from the seed in each (every restarted env first), and the initial
+reset.  Every env starts from its reset at set-up, so the unit fixes
+how deep into their episodes the checked states lie: a faster program
+is checked on the same states as a slower one, bit for bit where the
+physics is the same.  Units the window ran past `check_at` are not
+checked; where the window ended before it, the check steps on, untimed,
+with the same action stream, once the window's numbers are read."""
 from __future__ import annotations
 
-import collections
 from typing import Dict
 
 import torch
@@ -25,10 +31,11 @@ class Drive:
         self.seed, self.device = seed, torch.device(device)
         self.num_envs = int(traffic["num_envs"])
         self.timings = None
-        # (pre-step state, actions, post-step state) of the last units,
-        # for the check
-        self.checked = collections.deque(maxlen=limits.get("check_units",
-                                                           1))
+        self.check_at = int(limits["check_at"])
+        self.first_checked = self.check_at - int(limits["check_units"]) + 1
+        self.units = 0                  # units stepped since set-up
+        # (pre-step state, actions, post-step state) of the checked units
+        self.checked = []
 
     def setup(self) -> None:
         from mj_envs_torch import envs
@@ -48,8 +55,16 @@ class Drive:
         a = drive.uniform_actions(self.gen, self.num_envs, self.env.nu,
                                   self.device)
         pre, self.state = self.state, self.vec.step(self.state, a)
-        self.checked.append((pre, a, self.state))
+        self.units += 1
+        if self.first_checked <= self.units <= self.check_at:
+            self.checked.append((pre, a, self.state))
         return self.num_envs
+
+    def step_to_check(self) -> None:
+        """Untimed units up to `check_at`, where the window ended before
+        it."""
+        while self.units < self.check_at:
+            self.unit()
 
     def mark(self) -> None:
         self.window_start = self.state
@@ -69,6 +84,9 @@ class Check:
         lim = cell.limits
         k, kr = lim["sample_envs"], lim["sample_restarts"]
         self.config = cell.config
+        # The harness builds the check once it has read the window's
+        # numbers and `failed`: the units stepped here are in neither.
+        d.step_to_check()
         self.steps = []
         for u, (pre, action, post) in enumerate(d.checked):
             rows = check.sample(seed, f"check{u}", post, k, kr)

@@ -1,7 +1,7 @@
 """The control, on the card: the reference in float32 with TF32 matrix
 products, put in the program's place, fails the cell's limits where the
-program passes them (hammer at 64 envs, one step after the warm-up;
-the PPO cell at 64 envs x 2 steps, one iteration after the warm-up).
+program passes them (hammer at 64 envs, at the cell's `check_at`; the
+PPO cell at 64 envs x 2 steps, one iteration after the warm-up).
 The full readings, at the cells' own sizes, come from
 `benchmark/calibrate.py`."""
 import pytest

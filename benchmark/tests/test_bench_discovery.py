@@ -71,8 +71,10 @@ def test_new_kind_found_and_run(tree):
     (root / "kinds" / "rollout_pairs.py").write_text(NEW_KIND)
     (root / "traffic" / "pairs_2.json").write_text(json.dumps(
         {"kind": "rollout_pairs", "num_envs": 2}))
-    (root / "workloads" / "door.pairs.2.json").write_text(
+    limits = json.loads(
         (root / "workloads" / "door.rollout.4096.json").read_text())
+    limits["check_at"] = 4           # two pairs after the warm-up pair
+    (root / "workloads" / "door.pairs.2.json").write_text(json.dumps(limits))
     bench["workloads"].append({"name": "door.pairs.2", "config": "door-v0",
                                "traffic": "pairs_2", "chips": 1,
                                "why": "two steps a unit"})
@@ -99,6 +101,25 @@ def test_each_cell_resolves(name):
     assert cell.metrics(True), "every cell reports a per-layer metric"
     assert all(m["moves"] in e2e for m in cell.metrics(True))
     assert cell.limits["limits"]
+
+
+def _rollout_files():
+    """Every workload file that the kind `rollout` reads: those of the
+    cells whose traffic has that kind, and those kept for later cells
+    (only that kind reads `check_units`)."""
+    names = {w["name"] for w in spec.benchmark()["workloads"]
+             if spec.Cell(w["name"]).traffic["kind"] == "rollout"}
+    d = os.path.join(BENCH, "workloads")
+    names |= {f[:-5] for f in os.listdir(d) if f.endswith(".json")
+              and "check_units" in spec.load_json(os.path.join(d, f))}
+    return sorted(names)
+
+
+@pytest.mark.parametrize("name", _rollout_files())
+def test_rollout_checks_a_fixed_unit(name):
+    lim = spec.load_json(os.path.join(BENCH, "workloads", name + ".json"))
+    assert isinstance(lim["check_at"], int)
+    assert lim["check_at"] >= lim["check_units"] >= 1
 
 
 def test_unknown_cell_is_refused():
