@@ -603,26 +603,47 @@ def compare_fk(envs, VectorEnv, apply_var, dev):
 
 
 # The float32 adds, multiplies, divides and square roots of one instance
-# on each cylinder kernel's costliest path, counted from
-# csrc/narrow_cyl.cu: the generic convex contact (48 projection rounds,
-# 1 + K support gaps, 24 polish steps, 3 support points) and its set-up;
-# capsule-cylinder's 67 point distances and its two contacts; the four
-# rim points of plane-cylinder.  A cap, side, standing or lying instance
-# takes a few hundred, so the bound below is the most these inputs need.
+# on each narrowphase kernel's costliest path, counted from
+# csrc/narrow_cyl.cu and csrc/narrow_plain.cu: the generic convex contact
+# (48 projection rounds, 1 + K support gaps, 24 polish steps, 3 support
+# points) and its set-up; capsule-cylinder's 67 point distances and its
+# two contacts; the four rim points of plane-cylinder; box-box's 15
+# separating axes (654) and one face clipping (2,996, its 276-pair
+# duplicate test 1,380 of them); capsule-box's 12-step fixed point and
+# three sphere-box contacts; capsule-capsule's two segment contacts; the
+# corners and ends of plane-box and plane-capsule.  A cap, side,
+# standing, lying or edge instance takes fewer, so the bound below is the
+# most these inputs need.
 NARROW_FLOPS = {"narrow_plane_cylinder": 141,
                 "narrow_capsule_cylinder": 3590,
                 "narrow_cylinder_cylinder": 8289,
-                "narrow_cylinder_box": 8234}
+                "narrow_cylinder_box": 8234,
+                "narrow_plane_capsule": 44,
+                "narrow_plane_box": 277,
+                "narrow_capsule_capsule": 206,
+                "narrow_capsule_box": 572,
+                "narrow_box_box": 3650}
+
+
+def narrow_source(name):
+    """The kernel source whose `NARROW_ENTRY` line defines entry point
+    `name`."""
+    from mj_envs_torch.physics import _build
+    for f in _build.SOURCES:
+        with open(os.path.join(_build.CSRC, f)) as fh:
+            if f"NARROW_ENTRY({name}," in fh.read():
+                return f"mj_envs_torch/csrc/{f}"
+    raise LookupError(f"no NARROW_ENTRY for {name}")
 
 
 def compare_narrow(envs, VectorEnv, random_actions, dev):
-    """Phase 3, the narrowphase's cylinder kernels: each entry point on
-    its group of a real 512-env hammer chunk (a reset and two random
-    steps), bit for bit against the plain function on the card; kernel
-    and plain ms (CUDA events behind the spin kernel), and the bound:
-    each distinct geom's pose read once per env, the sizes and geom ids
-    once, each candidate's dist, pos and nrm written once.  Returns the
-    JSON entries."""
+    """Phase 3, the narrowphase kernels: each entry point on its group of
+    a real 512-env hammer chunk (a reset and two random steps), bit for
+    bit against the plain function on the card; kernel and plain ms (CUDA
+    events behind the spin kernel), and the bound: each distinct geom's
+    pose read once per env, the sizes, geom ids and margins once, each
+    candidate's dist, pos and nrm written once.  Returns the JSON
+    entries."""
     from mj_envs_torch.physics.collision import driver as C
     from mj_envs_torch.physics.collision import narrow_cuda as NC
     env = envs.make("hammer-v0", device=dev)
@@ -639,20 +660,19 @@ def compare_narrow(envs, VectorEnv, random_actions, dev):
         if key not in NC.KERNELS:
             continue
         name, nc = NC.KERNELS[key]
-        g1, g2 = NC.group_tables(s, pids, dev)
-        zero = torch.zeros(len(pids), device=dev)
+        g1, g2, marg = NC.group_tables(env.model, pids)
 
         def kernel():
-            return NC.narrow_cylinder_cuda(key, xpos, xmat, size, g1, g2)
+            return NC.narrow_cuda(key, xpos, xmat, size, g1, g2, marg)
 
         def plain():
             return C.plain_group(key, xpos, xmat, size.expand(B_CHUNK, -1, -1),
-                                 g1.long(), g2.long(), zero)
+                                 g1.long(), g2.long(), marg)
         for what, a, b in zip(("dist", "pos", "nrm"), kernel(), plain()):
             same_bits(f"{name} ({len(pids)} pairs) {what} vs the plain "
                       f"function", a, b)
         geoms = len(set(s.pair_geom1[pids]) | set(s.pair_geom2[pids]))
-        nbytes = (B_CHUNK * geoms * 12 + geoms * 3 + 2 * len(pids)
+        nbytes = (B_CHUNK * geoms * 12 + geoms * 3 + 3 * len(pids)
                   + B_CHUNK * len(pids) * nc * 7) * F32
         bms, by = bound(nbytes, B_CHUNK * len(pids) * NARROW_FLOPS[name])
         ms = time_ms(kernel, 50)
@@ -660,7 +680,7 @@ def compare_narrow(envs, VectorEnv, random_actions, dev):
         log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library -, bound {bms * 1e3:.2f} us ({by})")
         entries.append(dict(
-            name=name, route="cuda", source="mj_envs_torch/csrc/narrow_cyl.cu",
+            name=name, route="cuda", source=narrow_source(name),
             replaces="none (the JAX package's narrowphase, XLA-fused)",
             launches=0, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
             bound_ms=bms, bound_by=by, library_ms=None))

@@ -4,9 +4,9 @@ The sources have a plain C interface and include none of PyTorch's
 headers: each is compiled by `nvcc` for `sm_90a` into an object, all of
 them at once, and the objects are linked into one shared library that
 `ctypes` loads.  The build lands in `mj_envs_torch/_build/<hash>/`
-(listed in `.gitignore`), keyed by a hash of the sources and flags, so a
-fresh checkout builds at first use and later processes reuse it.  A
-failed build or load raises; there is no fallback.
+(listed in `.gitignore`), keyed by a hash of the sources, headers and
+flags, so a fresh checkout builds at first use and later processes
+reuse it.  A failed build or load raises; there is no fallback.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ from .. import trace
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG, "csrc")
 BUILD_ROOT = os.path.join(PKG, "_build")
-SOURCES = ("chol.cu", "fk.cu", "linesearch.cu", "noslip.cu", "narrow_cyl.cu")
+SOURCES = ("chol.cu", "fk.cu", "linesearch.cu", "noslip.cu", "narrow_cyl.cu",
+           "narrow_plain.cu")
+HEADERS = ("narrow.cuh",)
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
@@ -44,7 +46,7 @@ def _nvcc() -> str:
 def _digest() -> str:
     h = hashlib.sha256()
     h.update(" ".join(ARCH + FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode())
             h.update(f.read())
@@ -99,6 +101,7 @@ def library_path() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    from .kernels import KERNELS
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     PP, PL = ctypes.POINTER(P), ctypes.POINTER(ctypes.c_longlong)
     sigs = {
@@ -113,10 +116,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "linesearch_seq": [P] * 8 + [I, I, I, I, P],
         "noslip_sweep": [P] * 9 + [I, I, I, F, P],
     }
-    narrow = [P, P, P, I, P, P, I, I, I, P, P, P, P]
-    sigs.update((name, narrow) for name in (
-        "narrow_plane_cylinder", "narrow_capsule_cylinder",
-        "narrow_cylinder_cylinder", "narrow_cylinder_box"))
+    narrow = [P, P, P, I, P, P, P, I, I, I, P, P, P, P]
+    sigs.update((name, narrow) for name in KERNELS
+                if name.startswith("narrow_"))
     for name, args in sigs.items():
         fn = getattr(lib, name)
         fn.argtypes = args

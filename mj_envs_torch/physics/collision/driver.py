@@ -111,9 +111,9 @@ def plain_group(key, xpos, xmat, size, g1, g2, margin):
 def narrowphase_all(m: Model, kin: Kin) -> Contact:
     """Narrowphase over every candidate pair; one batched call per type
     group over (env, pair), results in slot order.  On the float32 card
-    path a cylinder group is one launch of its kernel (`narrow_cuda`);
-    the tracer counts the (env, pair) rows of each path
-    (`collide.kernel_rows`, `collide.plain_rows`)."""
+    path a group of a type with a kernel (all but the sphere types) is
+    one launch of it (`narrow_cuda`); the tracer counts the (env, pair)
+    rows of each path (`collide.kernel_rows`, `collide.plain_rows`)."""
     s = m.spec
     dtype, dev = kin.geom_xpos.dtype, kin.geom_xpos.device
     B = kin.geom_xpos.shape[0]
@@ -123,23 +123,18 @@ def narrowphase_all(m: Model, kin: Kin) -> Contact:
     for key, pids in _groups(s):
         with trace.span(_SPANS[key]):
             P = len(pids)
+            g1, g2, marg = narrow_cuda.group_tables(m, pids)
             if key in narrow_cuda.KERNELS and _on_card(
-                    kin.geom_xpos, kin.geom_xmat, m.geom_size):
+                    kin.geom_xpos, kin.geom_xmat, m.geom_size, m.pair_margin):
                 trace.count("collide.kernel_rows", B * P)
-                d, p, n = narrow_cuda.narrow_cylinder_cuda(
+                d, p, n = narrow_cuda.narrow_cuda(
                     key, kin.geom_xpos.contiguous(),
                     kin.geom_xmat.contiguous(), m.geom_size.contiguous(),
-                    *narrow_cuda.group_tables(s, pids, dev))
+                    g1, g2, marg)
             else:
                 trace.count("collide.plain_rows", B * P)
-                pids_np = np.asarray(pids)
-                g1 = torch.as_tensor(s.pair_geom1[pids_np], dtype=torch.long,
-                                     device=dev)
-                g2 = torch.as_tensor(s.pair_geom2[pids_np], dtype=torch.long,
-                                     device=dev)
-                marg = m.pair_margin[torch.as_tensor(pids_np, device=dev)]
                 d, p, n = plain_group(key, kin.geom_xpos, kin.geom_xmat,
-                                      size, g1, g2, marg)
+                                      size, g1.long(), g2.long(), marg)
             chunks_d.append(d.to(dtype))
             chunks_p.append(p.to(dtype))
             chunks_n.append(n.to(dtype))

@@ -21,8 +21,9 @@ in CUDA (`mj_envs_torch/csrc/`, built by `_build.py`):
 
 The eighth kernel, the fused forward kinematics (``fk``, TPU
 `_fk_kernel`), has its wrapper in `kinematics.py` and is counted here,
-as are the narrowphase's four cylinder pair types (``narrow_*``, no TPU
-kernel: `csrc/narrow_cyl.cu`), whose wrapper is in
+as are the narrowphase's pair types but the sphere ones (``narrow_*``,
+no TPU kernel: `csrc/narrow_cyl.cu` the four cylinder types,
+`csrc/narrow_plain.cu` the five others), whose wrapper is in
 `collision/narrow_cuda.py`.
 
 Two more CUDA kernels are references, not ports: ``linesearch_seq_cuda``
@@ -57,7 +58,9 @@ from .. import trace
 KERNELS = ("fk", "chol_factor", "chol_solve_fac", "chol_factor_solve",
            "linesearch_cost", "noslip_sweep", "linesearch", "chol_solve_mat",
            "narrow_plane_cylinder", "narrow_capsule_cylinder",
-           "narrow_cylinder_cylinder", "narrow_cylinder_box")
+           "narrow_cylinder_cylinder", "narrow_cylinder_box",
+           "narrow_plane_capsule", "narrow_plane_box",
+           "narrow_capsule_capsule", "narrow_capsule_box", "narrow_box_box")
 launches: Dict[str, int] = trace.counters
 launches.update((k, 0) for k in KERNELS)
 CHOL_SOLVE_MAX_NV = 64   # chol.cu's kMaxSolveNv: two columns per lane

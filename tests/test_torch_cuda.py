@@ -424,19 +424,8 @@ def test_cuda_render_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The narrowphase's cylinder kernel (csrc/narrow_cyl.cu)
+# The narrowphase kernels (csrc/narrow_cyl.cu, csrc/narrow_plain.cu)
 # ---------------------------------------------------------------------------
-
-def _narrow_plain(key, xpos, xmat, size, g1, g2):
-    """The plain pair function over a group's (env, pair) rows, as
-    `driver.narrowphase_all` calls it (the cylinder pairs read no
-    margin)."""
-    from mj_envs_torch.physics.collision import driver as C
-    B, P = xpos.shape[0], g1.shape[0]
-    sz = size if size.dim() == 3 else size.expand(B, -1, -1)
-    return C.plain_group(key, xpos, xmat, sz, g1.long(), g2.long(),
-                         torch.zeros(P, dtype=xpos.dtype, device=xpos.device))
-
 
 def _same_or_both_nan(a, b):
     """Equal bit for bit (as torch.equal compares), NaN where the other
@@ -445,53 +434,75 @@ def _same_or_both_nan(a, b):
     return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
-def _narrow_both(key, xpos, xmat, size, g1, g2):
-    """The kernel and the plain version on the card; one launch."""
+def _narrow_both(key, xpos, xmat, size, g1, g2, margin):
+    """The kernel and the plain version (as `driver.narrowphase_all` calls
+    it) on the card; one launch."""
+    from mj_envs_torch.physics.collision import driver as C
     from mj_envs_torch.physics.collision import narrow_cuda as NC
     name = NC.KERNELS[key][0]
     n = TK.launches[name]
-    out_k = NC.narrow_cylinder_cuda(key, xpos, xmat, size, g1, g2)
+    out_k = NC.narrow_cuda(key, xpos, xmat, size, g1, g2, margin)
     torch.cuda.synchronize()
     assert TK.launches[name] == n + 1
-    return out_k, _narrow_plain(key, xpos, xmat, size, g1, g2)
+    B = xpos.shape[0]
+    sz = size if size.dim() == 3 else size.expand(B, -1, -1)
+    return out_k, C.plain_group(key, xpos, xmat, sz, g1.long(), g2.long(),
+                                margin)
 
 
-_CYL_KEYS = [(0, 5), (3, 5), (5, 5), (5, 6)]   # plane, capsule, cylinder,
-_CYL_IDS = ["plane_cylinder", "capsule_cylinder", "cylinder_cylinder",
-            "cylinder_box"]                    # cylinder and box geom1
+# geom types: 0 plane, 3 capsule, 5 cylinder, 6 box
+_NARROW_KEYS = [(0, 3), (0, 5), (0, 6), (3, 3), (3, 5), (3, 6), (5, 5),
+                (5, 6), (6, 6)]
+_NARROW_IDS = ["plane_capsule", "plane_cylinder", "plane_box",
+               "capsule_capsule", "capsule_cylinder", "capsule_box",
+               "cylinder_cylinder", "cylinder_box", "box_box"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("key", _CYL_KEYS, ids=_CYL_IDS)
+@pytest.mark.parametrize("key", _NARROW_KEYS, ids=_NARROW_IDS)
 def test_cuda_narrow_cylinder_probes(cuda, key):
-    """Each cylinder kernel against its plain function on the card, bit
-    for bit, on numpy probes that reach every branch (random, and cap on
-    cap, side by side, standing, lying, parallel axes: see
-    `random_cylinder_pairs`), each instance an env of two geoms with its
-    own sizes (the per-env size path); env 5 NaN: a dist of it NaN, and
-    every output NaN where the plain version's is."""
-    from mj_envs_torch.physics.collision import narrow_cuda as NC
-    xpos, xmat, size = NC.random_cylinder_pairs(
-        np.random.default_rng(23), key, 1000)
+    """Each narrowphase kernel against its plain function on the card, bit
+    for bit, on numpy probes that reach every branch (see
+    `tests/narrow_probes.py`), each instance an env of two geoms with its
+    own sizes (the per-env size path), at margins 0 and 0.01 (capsule-
+    box's fallback reads it); NaN in env 5's positions, env 7's frame,
+    env 9's sizes and coincident centres in env 11: a dist of env 5 NaN
+    (box-box: a point of env 5 NaN, since its NaN poses fail every
+    candidate test and give BIG dists), every output NaN where the plain
+    version's is, and the rows without NaN finite."""
+    from narrow_probes import random_pairs
+    n = 1000
+    xpos, xmat, size = random_pairs(np.random.default_rng(23), key, n)
     xpos[5] = np.nan
+    xmat[7, 1, 0, 0] = np.nan
+    size[9, 0, 1] = np.nan
+    xpos[11, 1] = xpos[11, 0]
     args = [torch.as_tensor(x).to(cuda) for x in (xpos, xmat, size)]
     g = [torch.tensor([i], dtype=torch.int32, device=cuda) for i in (0, 1)]
-    out_k, out_p = _narrow_both(key, *args, *g)
-    for what, a, b in zip(("dist", "pos", "nrm"), out_k, out_p):
-        assert _same_or_both_nan(a, b), what
-        assert torch.isfinite(a[torch.arange(1000, device=cuda) != 5]).all()
-    assert torch.isnan(out_k[0][5]).any()
+    clean = ~torch.isin(torch.arange(n, device=cuda),
+                        torch.tensor([5, 7, 9, 11], device=cuda))
+    for margin in (0.0, 0.01):
+        marg = torch.full((1,), margin, device=cuda)
+        out_k, out_p = _narrow_both(key, *args, *g, marg)
+        for what, a, b in zip(("dist", "pos", "nrm"), out_k, out_p):
+            assert _same_or_both_nan(a, b), (what, margin)
+            assert torch.isfinite(a[clean]).all()
+        assert torch.isnan(out_k[1 if key == (6, 6) else 0][5]).any()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 77, 512])
-@pytest.mark.parametrize("task", ["hammer-v0", "door-v0", "pen-v0"])
-def test_cuda_narrow_cylinder_real_states(cuda, task, B):
-    """Each of the task's cylinder groups, kernel against plain function
-    on the card, bit for bit, on the task's states after a reset and
-    three random steps; with shared and per-env geom sizes; with one env
-    NaN (its rows NaN in both).  The step itself launches one kernel a
-    cylinder group a substep."""
+@pytest.mark.parametrize("task,B,steps", [
+    ("hammer-v0", 1, 3), ("hammer-v0", 77, 3), ("hammer-v0", 512, 30),
+    ("door-v0", 1, 3), ("door-v0", 77, 3), ("door-v0", 512, 3),
+    ("pen-v0", 1, 3), ("pen-v0", 77, 3), ("pen-v0", 512, 3),
+    ("relocate-v0", 77, 3)])
+def test_cuda_narrow_cylinder_real_states(cuda, task, B, steps):
+    """Each of the task's groups with a kernel, kernel against plain
+    function on the card, bit for bit, on the task's states after a reset
+    and `steps` random steps (hammer at B = 512 after 30: all 257 pairs,
+    the plain groups' 175 among them); with shared and per-env geom
+    sizes; with one env NaN (its rows NaN in both).  The step itself
+    launches one kernel a group a substep."""
     from mj_envs_torch import envs
     from mj_envs_torch.parallel.vector import VectorEnv, random_actions
     from mj_envs_torch.physics.collision import driver as C
@@ -502,7 +513,7 @@ def test_cuda_narrow_cylinder_real_states(cuda, task, B):
     st = venv.reset(seed=4)
     groups = [(k, p) for k, p in C._groups(env.spec) if k in NC.KERNELS]
     names = [NC.KERNELS[k][0] for k, _ in groups]
-    for _ in range(3):
+    for _ in range(steps):
         before = {k: TK.launches[k] for k in names}
         st = venv.step(st, random_actions(gen, B, env.nu, cuda))
         # one launch a group a substep (the reset does not collide)
@@ -517,9 +528,9 @@ def test_cuda_narrow_cylinder_real_states(cuda, task, B):
         rng.uniform(0.8, 1.2, (B,) + tuple(size.shape)),
         dtype=torch.float32, device=cuda)).contiguous()
     for key, pids in groups:
-        g1, g2 = NC.group_tables(env.spec, pids, cuda)
+        tables = NC.group_tables(env.model, pids)
         for xp, sz in ((xpos, size), (xpos, per_env), (nan, size)):
-            out_k, out_p = _narrow_both(key, xp, xmat, sz, g1, g2)
+            out_k, out_p = _narrow_both(key, xp, xmat, sz, *tables)
             for what, a, b in zip(("dist", "pos", "nrm"), out_k, out_p):
                 assert _same_or_both_nan(a, b), (key, what)
 
@@ -527,7 +538,7 @@ def test_cuda_narrow_cylinder_real_states(cuda, task, B):
 @pytest.mark.cuda
 def test_cuda_narrowphase_float64_launches_no_kernel(cuda):
     """float64 on the card takes the plain functions: narrowphase_all on
-    hammer's float64 state launches none of the cylinder kernels and
+    hammer's float64 state launches none of the narrowphase kernels and
     equals the CPU's."""
     from mj_envs_torch import envs
     from mj_envs_torch.physics.collision import driver as C
@@ -549,8 +560,9 @@ def test_cuda_narrowphase_float64_launches_no_kernel(cuda):
 
 @pytest.mark.cuda
 def test_cuda_narrowphase_float16_raises(cuda):
-    """A float16 state on the card reaches a cylinder group and raises,
-    as every kernel's front end does for a dtype it does not take."""
+    """A float16 state on the card reaches a group with a kernel and
+    raises, as every kernel's front end does for a dtype it does not
+    take."""
     from mj_envs_torch import envs
     from mj_envs_torch.physics.collision import driver as C
     env = envs.make("hammer-v0", device=cuda)
